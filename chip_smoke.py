@@ -1,0 +1,325 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its seconds; any failure exits non-zero):
+  1. build   — nvcc builds every kernel source in rlsolver_tpu_torch/csrc for
+               sm_90a, one compiler per source, all at once;
+  2. check   — every kernel's wrapper runs on the card at the main path's
+               shapes (G22-like graph, N = 2000; 2^20 chains for the sampler
+               and the sweep, 2048 for the warm start's 1-flip sweep) and is
+               held bit for bit against its plain PyTorch version; the fused
+               sampler's marginals are checked against the policy;
+  3. stream  — K2, the injected-randomness twin of K3, which no solver path
+               runs: `mh_sample_stream` alone on the main path's shapes, its
+               launches counted in that run;
+  4. main    — MCPG `--fast` (sampler="fused", sweep_mode="packed") on the
+               G22-like instance with the gset_22 preset of GSET_PRESETS_40G
+               (2048 x 512 = 2^20 chains), cut to one epoch of 4 rounds; the
+               best cut must equal its host re-scoring and every kernel of the
+               path must have launched;
+  5. profile — device time by kernel of one --fast round (torch.profiler);
+  6. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast --graphs BA_100_ID0`;
+  7. time    — kernel, plain-version and bound times at the main path's shapes.
+
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# Peak integer rates: results per clock per SM from the CUDA C++ Programming
+# Guide's table of arithmetic-instruction throughput for compute capability
+# 9.0 (64 for 32-bit integer add, logic, shift, compare and multiply; 16 for
+# population count), times the card's SM count and the H100 SXM's 1.98 GHz
+# boost clock, at which its published 67 TFLOP/s of float32 is
+# 132 SMs x 128 lanes x 2 flops.
+BOOST_CLOCK_HZ = 1.98e9
+INT32_PER_SM_CLOCK = 64
+POPC_PER_SM_CLOCK = 16
+
+# integer operations per unit of work, counted from the kernels' sources
+PHILOX_OPS = 100  # one Philox4x32-10 call (4 draws)
+K2_OPS = 6  # per proposal: word/bit/acc2 decode, read bit, flip
+K3_OPS = 12 + PHILOX_OPS // 4  # per proposal: node/u16, bit, threshold compare, flip + draws
+WORD_INT_OPS = 2  # AND and add per word of a popcount (and one popcount)
+STEP_OPS = 10  # per sweep step: compare, bit set, loop
+
+
+def phase(name, t0):
+    print(f"phase {name} ok {time.time() - t0:.2f}s", flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Mean ms of fn() over reps calls (CUDA events), after one warm-up call."""
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, int_ops: float, popc_ops: float):
+    """Least ms for the work: the largest of the bytes over the memory rate,
+    the integer operations over the INT32 rate and the popcounts over the
+    popcount rate (the two pipes may overlap, so their times do not add)."""
+    sm_clock = torch.cuda.get_device_properties(0).multi_processor_count * BOOST_CLOCK_HZ
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(int_ops / (INT32_PER_SM_CLOCK * sm_clock), popc_ops / (POPC_PER_SM_CLOCK * sm_clock))
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def require_equal(name, a, b, errs, key):
+    """Bit-exact check of a kernel's output against its plain version; keeps
+    the largest |difference| seen for each kernel (0 when it passes)."""
+    err = float((a != b).any())  # outputs are bits: max |a - b| is 0 or 1
+    errs[key] = max(errs.get(key, 0.0), err)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: kernel and plain version differ in {int((a != b).sum())} entries")
+    print(f"  {name}: bit-exact ({tuple(a.shape)})", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from rlsolver_tpu_torch.algos.mcpg import GSET_PRESETS_40G, _build_steps, new_policy, solve_maxcut_mcpg
+    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.device import resolve_device
+    from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
+    from rlsolver_tpu_torch.ops.kernels import build, codec, mcpg_sweep as sw, mh_sampler as mh
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    dev = resolve_device("cuda")
+    smi = smi_line()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    # 1. build ------------------------------------------------------------
+    t0 = time.time()
+    logs = build.build_all()
+    for src, log in logs.items():
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"  {src}: " + " | ".join(regs))
+    phase("build", t0)
+
+    # 2. kernel checks at the main path's shapes ---------------------------
+    t0 = time.time()
+    g = build_g22_like()
+    n, w = g.num_nodes, codec.num_words(g.num_nodes)
+    preset = GSET_PRESETS_40G["gset_22"]
+    B = preset.total_mcmc_num * preset.repeat_times  # 2^20 chains
+    B_WARM = preset.total_mcmc_num  # the warm start's 1-flip sweep
+    S = preset.num_ls
+    ROUNDS = 2 * (n // 10)  # MH rounds per MCPG round
+    B_PLAIN_SWEEP = 8192  # the plain sweep's Python loop is slow: fewer chains
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+    probs = torch.rand(n, generator=gen, device=dev) * 0.6 + 0.2
+    bits = torch.rand(B, n, generator=gen, device=dev) < 0.5
+    tables = sw.PackedSweepTables.build(g, dev)
+    adj = sw.pack_adjacency(g, dev)
+    thr = mh.fused_thresholds(probs)
+    errs = {}
+
+    def proposal_stream():
+        """K2's int32 [ROUNDS, B] stream, 16 rounds of random bits at a time."""
+        out = torch.empty(ROUNDS, B, dtype=torch.int32, device=dev)
+        for r in range(0, ROUNDS, 16):
+            raw = torch.randint(0, 2**32, (min(16, ROUNDS - r), B), generator=gen, device=dev, dtype=torch.int64)
+            out[r : r + 16] = mh.make_proposal_stream(raw, probs)
+        return out
+
+    stream = proposal_stream()
+    k2_out = mh.mh_sample_stream(stream, bits)
+    require_equal("K2 mh_sample_stream", k2_out,
+                  codec.unpack_bits(mh.mh_stream_plain(stream, codec.pack_bits(bits)), n), errs, "mh_sample_stream")
+
+    out = mh.mh_sample_fused(12345, probs, bits, ROUNDS)
+    plain = codec.unpack_bits(mh.mh_fused_plain(12345, thr, codec.pack_bits(bits), n, ROUNDS), n)
+    require_equal("K3 mh_sample_fused", out, plain, errs, "mh_sample_fused")
+    zeros = torch.zeros(8192, n, dtype=torch.bool, device=dev)
+    marg = mh.mh_sample_fused(7, probs, zeros, 20 * n).float().mean(0)
+    err = float((marg - probs).abs().max())
+    print(f"  K3 marginals after {20 * n} rounds from all-zero chains: max |mean - p| = {err:.4f} (limit 0.03)")
+    if not err < 0.03:
+        raise AssertionError("K3 does not reach the policy's marginals")
+
+    noise = torch.randint(0, 65536, (S * n, 8192), generator=gen, device=dev, dtype=torch.int32)
+    sub = bits[:8192].contiguous()
+    out = sw.mcpg_sweep_packed(noise, sub, tables, num_sweeps=S)
+    plain = codec.unpack_bits(sw._sweep_plain(tables, codec.pack_bits(sub), n, S, 0.25, noise, 0), n)
+    require_equal("K4 mcpg_sweep_packed (injected noise)", out, plain, errs, "mcpg_sweep")
+    out = sw.mcpg_sweep_fused(777, bits, tables, num_sweeps=S)
+    sub = bits[:B_PLAIN_SWEEP].contiguous()
+    plain = codec.unpack_bits(sw._sweep_plain(tables, codec.pack_bits(sub), n, S, 0.25, None, 777), n)
+    require_equal(f"K4 mcpg_sweep_fused (first {B_PLAIN_SWEEP} of {B} chains)", out[:B_PLAIN_SWEEP], plain,
+                  errs, "mcpg_sweep")
+
+    warm = bits[:B_WARM].contiguous()
+    out = sw.sweep_1flip_packed(warm, adj)
+    require_equal("K5 sweep_1flip_packed", out, sw._sweep_1flip_plain(warm, adj), errs, "sweep_1flip")
+    env32 = MaxcutEnv(g, dev)
+    f32_bits, f32_vs = env32.sweep_1flip(warm, env32.obj(warm))
+    require_equal("K5 vs the f32 incremental-gain sweep", out, f32_bits, errs, "sweep_1flip")
+    if not torch.equal(env32.obj(out), f32_vs):
+        raise AssertionError("K5: cut values differ from the f32 sweep's")
+    del noise, out, plain, sub
+    torch.cuda.synchronize()
+    phase("check", t0)
+
+    # 3. the stream path: K2 alone, on the chains and stream of the checks ------
+    t0 = time.time()
+    build.reset_counts()
+    out = mh.mh_sample_stream(stream, bits)
+    torch.cuda.synchronize()
+    stream_counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"  mh_sample_stream: {ROUNDS} rounds on {B} chains; launches {stream_counts}")
+    if stream_counts["mh_sample_stream"] <= 0:
+        raise AssertionError("stream path did not launch mh_sample_stream")
+    if not torch.equal(out, k2_out):
+        raise AssertionError("stream path: K2 gave another result on the same inputs")
+    del stream, out, k2_out
+    phase("stream", t0)
+
+    # 4. main path: MCPG --fast at 2^20 chains ------------------------------
+    t0 = time.time()
+    fast_cfg = dataclasses.replace(preset, sampler="fused", sweep_mode="packed", max_epoch_num=1,
+                                   reset_epoch_num=32, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    best_x, best_v, ev = solve_maxcut_mcpg(g, fast_cfg, device=dev)
+    torch.cuda.synchronize()
+    fast_counts = {k.name: k.launches for k in build.KERNELS}
+    host = obj_maxcut(best_x.astype("int64"), g)
+    times = [b[2] - a[2] for a, b in zip(ev.records, ev.records[1:])]
+    print(f"  C={fast_cfg.total_mcmc_num} R={fast_cfg.repeat_times} -> {B} chains, N={n}, "
+          f"num_ls={S}, {ROUNDS} MH rounds per round; cut to max_epoch_num=1, {len(times)} rounds")
+    print(f"  best cut {best_v} host re-score {host} seconds/round {times} samples/s {[B / t for t in times]}")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB launches {fast_counts}")
+    if host != best_v:
+        raise AssertionError(f"main: best cut {best_v} != host re-score {host}")
+    for k in ("mh_sample_fused", "mcpg_sweep", "sweep_1flip"):
+        if fast_counts[k] <= 0:
+            raise AssertionError(f"main path did not launch {k}")
+    phase("main", t0)
+
+    # where one --fast round's device time goes (torch.profiler) -------------
+    t0 = time.time()
+    env = MaxcutEnv(g, dev, packed_sweep=True)
+    steps = _build_steps(env, None, fast_cfg)
+    policy, optimizer = new_policy(n, fast_cfg, dev)
+    best_xs = bits[: fast_cfg.total_mcmc_num].clone()
+
+    def one_round():
+        probs_r = policy().detach()
+        mh_r, ls_r, cuts_r = steps.sample_step(gen, probs_r, bits)
+        steps.reduce_step(ls_r, cuts_r, best_xs.clone(), env.obj(best_xs))
+        steps.update_step(policy, optimizer, mh_r, cuts_r)
+        torch.cuda.synchronize()
+
+    one_round()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t_round = time.time()
+        one_round()
+        wall_ms = 1e3 * (time.time() - t_round)
+    # device-side events only (kernels, copies): the CPU ops that launched
+    # them carry the same device time again
+    dev_events = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_events.sort(key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms, _ in dev_events)
+    print(f"  one --fast round at {B} chains: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for key, ms, count in dev_events[:12]:
+        print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
+    phase("profile", t0)
+
+    # 5. CLI ------------------------------------------------------------------
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", "--alg", "mcpg", "--fast",
+                           "--graphs", "BA_100_ID0"], capture_output=True, text=True, cwd=REPO, timeout=600)
+    print("  " + proc.stdout.strip())
+    if proc.returncode != 0 or "obj=" not in proc.stdout:
+        raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    phase("cli", t0)
+
+    # 6. timings at the main path's shapes ----------------------------------
+    t0 = time.time()
+    words = codec.pack_bits(bits)
+    warm_words = codec.pack_bits(warm)
+    stream = proposal_stream()
+    thr1, thr2 = sw._noisy_thresholds(tables, 0.25)
+    word_bytes = 2 * B * w * 4  # chains read and written once
+    sweep_popc = B * n * (2 * w + (S - 1) * w)  # two mask planes in sweep 1, one after
+    sweep_int = WORD_INT_OPS * sweep_popc + B * n * S * (STEP_OPS + PHILOX_OPS // 4)
+    rows = [
+        dict(name="mh_sample_stream", kernel=mh.MH_STREAM, launches=stream_counts["mh_sample_stream"],
+             run=lambda: mh.MH_STREAM.launch(stream, words, B, w, ROUNDS),
+             plain=lambda: mh.mh_stream_plain(stream, words), plain_chains=B, reps=10,
+             bytes=word_bytes + stream.numel() * 4, int_ops=ROUNDS * B * K2_OPS, popc_ops=0),
+        dict(name="mh_sample_fused", kernel=mh.MH_FUSED, launches=fast_counts["mh_sample_fused"],
+             run=lambda: mh.MH_FUSED.launch(thr, words, B, w, n, ROUNDS, 12345),
+             plain=lambda: mh.mh_fused_plain(12345, thr, words, n, ROUNDS), plain_chains=B, reps=10,
+             bytes=word_bytes + thr.numel() * 4, int_ops=ROUNDS * B * K3_OPS, popc_ops=0),
+        dict(name="mcpg_sweep", kernel=sw.MCPG_SWEEP, launches=fast_counts["mcpg_sweep"],
+             run=lambda: sw.MCPG_SWEEP.launch(tables.nodes, thr1, thr2, tables.masks, 0, None, 1, 777,
+                                              0.25 / 65536.0, words, B, w, n, S),
+             plain=lambda: sw._sweep_plain(tables, words[:B_PLAIN_SWEEP], n, S, 0.25, None, 777),
+             plain_chains=B_PLAIN_SWEEP, reps=2,
+             bytes=word_bytes + tables.masks.numel() * 4 + 3 * n * 4, int_ops=sweep_int, popc_ops=sweep_popc),
+        dict(name="sweep_1flip", kernel=sw.SWEEP_1FLIP, launches=fast_counts["sweep_1flip"],
+             run=lambda: sw.SWEEP_1FLIP.launch(adj.pos, None, adj.deg_pos, None, warm_words, B_WARM, w, n),
+             plain=lambda: sw._sweep_1flip_plain(warm, adj), plain_chains=B_WARM, reps=10,
+             bytes=2 * B_WARM * w * 4 + adj.pos.numel() * 4 + n * 4,
+             int_ops=B_WARM * n * (w * WORD_INT_OPS + STEP_OPS), popc_ops=B_WARM * n * w),
+    ]
+    kernels = []
+    for row in rows:
+        ms = cuda_ms(row["run"], row["reps"])
+        plain_ms = cuda_ms(row["plain"], 1, warmup=False)  # slow; warmed up by the checks
+        bound_ms, bound_by = bound(row["bytes"], row["int_ops"], row["popc_ops"])
+        k = row["kernel"]
+        kernels.append(dict(
+            name=row["name"], route="cuda", source=f"rlsolver_tpu_torch/csrc/{k.source}",
+            replaces=k.replaces, launches=row["launches"], max_abs_err=errs[row["name"]], ms=ms, plain_ms=plain_ms,
+            plain_chains=row["plain_chains"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
+        print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}); "
+              f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
+    phase("time", t0)
+
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,92 @@
+// Shared pieces of the bit-packed chain kernels.
+//
+// Layout: chains are int32 words [B, W], W = ceil(N / 32), node i in word
+// i >> 5 at bit i & 31; bit work is done on uint32_t so shifts are logical.
+// Each kernel runs one thread per chain and keeps a block's chains in shared
+// memory for the whole call: the block's rows are one contiguous run of
+// global memory, loaded and stored coalesced, and a chain's words sit at an
+// odd stride so that threads reading the same word index hit distinct banks.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rl {
+
+constexpr int kChainsPerBlock = 128;
+
+__host__ __device__ inline int smem_stride(int W) { return W | 1; }
+
+// Copies the block's chains between global [B, W] and shared memory.
+__device__ inline void load_chains(uint32_t* sm, const uint32_t* __restrict__ words,
+                                   long long b0, int nb, int W) {
+  const int stride = smem_stride(W);
+  const uint32_t* src = words + b0 * W;
+  for (int i = threadIdx.x; i < nb * W; i += blockDim.x) {
+    const int c = i / W;
+    sm[c * stride + (i - c * W)] = src[i];
+  }
+  __syncthreads();
+}
+
+__device__ inline void store_chains(const uint32_t* sm, uint32_t* __restrict__ words,
+                                    long long b0, int nb, int W) {
+  __syncthreads();
+  const int stride = smem_stride(W);
+  uint32_t* dst = words + b0 * W;
+  for (int i = threadIdx.x; i < nb * W; i += blockDim.x) {
+    const int c = i / W;
+    dst[i] = sm[c * stride + (i - c * W)];
+  }
+}
+
+// Philox4x32-10 (Salmon et al., SC'11). Draw t of chain c under key
+// (seed, tag) is word t & 3 of philox(counter = (t >> 2, c, 0, 0)); the
+// plain twin is rlsolver_tpu_torch/ops/kernels/philox.py.
+__device__ inline uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ inline uint32_t pick(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+constexpr uint32_t kTagMH = 0x4D48u;
+constexpr uint32_t kTagSweep = 0x5357u;
+
+// Threads per block and dynamic shared memory for a chain tile of W words,
+// or 0 threads when even 32 chains do not fit.
+inline int chains_per_block(int W, size_t* smem) {
+  int t = kChainsPerBlock;
+  while (t >= 32) {
+    *smem = (size_t)t * smem_stride(W) * sizeof(uint32_t);
+    if (*smem <= 227 * 1024) return t;
+    t /= 2;
+  }
+  return 0;
+}
+
+template <typename K>
+inline cudaError_t prepare(K kernel, int W, int* threads, size_t* smem) {
+  *threads = chains_per_block(W, smem);
+  if (*threads == 0) return cudaErrorInvalidValue;
+  if (*smem > 48 * 1024)
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  return cudaSuccess;
+}
+
+}  // namespace rl
+
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,99 @@
+"""Pattern-II batched maxcut environment (counterpart of
+`rlsolver_tpu/envs/maxcut.py`).
+
+State is `xs: bool [num_sims, num_nodes]`. The objective is one matmul
+(dense) or an edge gather (sparse), see `ops/cut.py`. `local_search` is the
+reference's `local_search_inplace` (`env_L2A.py:87-116` in RLSolver): noisy
+top-k multi-flips with elitist accepts, then a greedy 1-flip sweep.
+
+`sweep_1flip` runs the packed kernel (K5) when the env is built with
+`packed_sweep=True`, else an f32 sweep with rank-1 gain updates; the two are
+bit-identical on {0, +-1}-weight graphs. `packed_sweep=True` on other weights
+raises NotImplementedError: their kernels (K8) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from rlsolver_tpu_torch.core.graph import Graph
+from rlsolver_tpu_torch.device import resolve_device
+from rlsolver_tpu_torch.ops import cut as cut_ops
+from rlsolver_tpu_torch.ops.kernels.mcpg_sweep import pack_adjacency, sweep_1flip_packed
+from rlsolver_tpu_torch.ops.reductions import update_xs_by_vs
+
+
+class MaxcutEnv:
+    """Static per-instance tensors on one device + batched methods. The
+    device is `cuda` unless the caller passes `device="cpu"`."""
+
+    def __init__(self, graph: Graph, device=None, mode: str = "auto", packed_sweep: bool = False):
+        self.graph = graph
+        self.num_nodes = graph.num_nodes
+        self.device = resolve_device(device)
+        self.mode = mode
+        self.cg = cut_ops.CutGraph.build(graph, self.device, with_dense=mode != "sparse")
+        self._adj_packed = pack_adjacency(graph, self.device) if packed_sweep else None
+
+    def random_xs(self, gen: torch.Generator, num_sims: int) -> torch.Tensor:
+        """Uniform random bits with node 0 pinned to 0 (breaks the cut symmetry)."""
+        xs = torch.rand(num_sims, self.num_nodes, generator=gen, device=self.device) < 0.5
+        xs[:, 0] = False
+        return xs
+
+    def obj(self, xs: torch.Tensor) -> torch.Tensor:
+        """Cut values, f32 [B] (integral for integer-weight graphs)."""
+        return cut_ops.cut_value(xs, self.cg, self.mode)
+
+    def gains(self, xs: torch.Tensor) -> torch.Tensor:
+        """Per-node flip gains, f32 [B, N]."""
+        return cut_ops.flip_gains(xs, self.cg, self.mode)
+
+    def local_search(
+        self,
+        gen: torch.Generator,
+        xs: torch.Tensor,
+        vs: Optional[torch.Tensor] = None,
+        num_iters: int = 8,
+        num_spin: int = 8,
+        noise_std: float = 0.3,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Noisy multi-flip phase, then one greedy 1-flip sweep."""
+        if vs is None:
+            vs = self.obj(xs)
+        gains = self.gains(xs)
+        # per-node spread across sims, as in the reference
+        rng_std = (gains.max(dim=0, keepdim=True).values - gains.min(dim=0, keepdim=True).values) * noise_std
+
+        def noisy():
+            return gains + torch.randn(gains.shape, generator=gen, device=gains.device) * rng_std
+
+        k_small = self.num_nodes - num_spin  # torch.kthvalue is 1-based smallest
+        thresh = torch.sort(noisy(), dim=1).values[:, k_small - 1][:, None]
+        for _ in range(num_iters):
+            xs_try = torch.logical_xor(xs, noisy() > thresh)
+            xs, vs = update_xs_by_vs(xs, vs, xs_try, self.obj(xs_try))
+        return self.sweep_1flip(xs, vs)
+
+    def sweep_1flip(self, xs: torch.Tensor, vs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One greedy sequential 1-flip sweep over all nodes (ascending),
+        strict improvements only. Sign convention: bit 1 -> sign +1."""
+        if self._adj_packed is not None:
+            out = sweep_1flip_packed(xs, self._adj_packed)
+            return out, self.obj(out)
+        if self.cg.adj is None:
+            raise NotImplementedError("sweep_1flip needs the dense adjacency")
+        s = cut_ops.signs_from_bits(xs)
+        gains = self.gains(xs)
+        vs = vs.clone()
+        for i in range(self.num_nodes):
+            g_i = gains[:, i].clone()
+            accept = g_i > 0.0
+            s_i = s[:, i].clone()
+            gains += -2.0 * (s_i * accept)[:, None] * s * self.cg.adj[i][None, :]
+            gains[:, i] = torch.where(accept, -g_i, g_i)
+            s[:, i] = torch.where(accept, -s_i, s_i)
+            vs += torch.where(accept, g_i, 0.0)
+        return s > 0.0, vs

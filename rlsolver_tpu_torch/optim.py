@@ -1,0 +1,56 @@
+"""The JAX package's optimizer, `optax.chain(optax.clip_by_global_norm(1.0),
+optax.adam(lr))`, written out so that it follows optax step for step.
+
+Two places where the torch built-ins differ from optax:
+  * optax scales the gradients by max_norm / norm only when norm >= max_norm;
+    `torch.nn.utils.clip_grad_norm_` always scales by max_norm / (norm + 1e-6).
+  * optax divides the moments by the bias corrections first and adds eps to
+    sqrt(nu_hat); `torch.optim.Adam` folds the corrections into the step size
+    and adds eps to sqrt(nu) / sqrt(correction).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+
+class ClippedAdam:
+    """Global-norm clipping, then Adam, on a list of parameters (their .grad)."""
+
+    def __init__(self, params, lr: float, max_norm: float = 1.0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params: List[torch.nn.Parameter] = list(params)
+        self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params]
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        if not bool(g_norm < self.max_norm):
+            grads = [(g / g_norm) * self.max_norm for g in grads]
+        self.count += 1
+        count = torch.tensor(self.count, dtype=torch.float32)
+        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
+        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            update = (mu / c1.to(mu.device)) / (torch.sqrt(nu / c2.to(nu.device)) + self.eps)
+            p.add_(-self.lr * update)
+
+    def state_dict(self) -> Dict[str, object]:
+        return {"count": self.count, "mu": [m.clone() for m in self.mu], "nu": [v.clone() for v in self.nu]}
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self.count = int(state["count"])
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
