@@ -5,11 +5,16 @@
 Phases (each prints its seconds; any failure exits non-zero):
   1. build   — nvcc builds every kernel source in rlsolver_tpu_torch/csrc for
                sm_90a, one compiler per source, all at once;
-  2. check   — every kernel's wrapper runs on the card at the main path's
-               shapes (G22-like graph, N = 2000; 2^20 chains for the sampler
-               and the sweep, 2048 for the warm start's 1-flip sweep) and is
-               held bit for bit against its plain PyTorch version; the fused
-               sampler's marginals are checked against the policy;
+  2. check   — every kernel's wrapper runs on the card at its path's shapes
+               and is held bit for bit against its plain PyTorch version:
+               K2-K5 on the G22-like graph (N = 2000; 2^20 chains for the
+               sampler and the sweep, 2048 for the warm start's 1-flip
+               sweep), K6/K8a on W22-like and K7/K8b on W70-like (the plain
+               sweep on 2048 chains and 2 sweeps, the 1-flip sweeps on the
+               warm starts' 2048 and 768 chains, also against the f32 sweep);
+               fused K6 equals fused K7 (forced chunk) and, on G22-like with
+               random +-1 signs, fused K4; the fused sampler's marginals are
+               checked against the policy;
   3. stream  — K2, the injected-randomness twin of K3, which no solver path
                runs: `mh_sample_stream` alone on the main path's shapes, its
                launches counted in that run;
@@ -18,9 +23,20 @@ Phases (each prints its seconds; any failure exits non-zero):
                (2048 x 512 = 2^20 chains), cut to one epoch of 4 rounds; the
                best cut must equal its host re-scoring and every kernel of the
                path must have launched;
-  5. profile — device time by kernel of one --fast round (torch.profiler);
-  6. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast --graphs BA_100_ID0`;
-  7. time    — kernel, plain-version and bound times at the main path's shapes.
+  5. w22     — MCPG `--fast` on W22-like (the G22-like topology, integer
+               weights in +-{1..7}) with the same preset, cut to 2 rounds:
+               the engine must pick K6 and K8a, and K3, K6, K8a must launch;
+  6. w70     — MCPG `--fast` on W70-like (10000 nodes, 9999 edges, the same
+               weights) with the gset_70 preset cut to 768 x 32 chains and 2
+               rounds: the engine must pick K7 and K8b, and K3, K7, K8b must
+               launch;
+  7. profile — device time by kernel of one --fast round on G22-like
+               (torch.profiler);
+  8. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
+               and on W22-like written as a gset file;
+  9. time    — kernel, plain-version and bound times at each path's shapes;
+               a sweep's bound counts the popcounts its table's non-zero
+               words need, with `dense_bound_ms` (every word) beside it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -34,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -45,10 +62,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # 9.0 (64 for 32-bit integer add, logic, shift, compare and multiply; 16 for
 # population count), times the card's SM count and the H100 SXM's 1.98 GHz
 # boost clock, at which its published 67 TFLOP/s of float32 is
-# 132 SMs x 128 lanes x 2 flops.
+# 132 SMs x 128 lanes x 2 flops. Every instruction of a warp, a broadcast
+# load of one table word included, takes a slot of one of the SM's four warp
+# schedulers, each of which dispatches at most one instruction per clock.
 BOOST_CLOCK_HZ = 1.98e9
 INT32_PER_SM_CLOCK = 64
 POPC_PER_SM_CLOCK = 16
+WARP_INSTR_PER_SM_CLOCK = 4
 
 # integer operations per unit of work, counted from the kernels' sources
 PHILOX_OPS = 100  # one Philox4x32-10 call (4 draws)
@@ -56,6 +76,7 @@ K2_OPS = 6  # per proposal: word/bit/acc2 decode, read bit, flip
 K3_OPS = 12 + PHILOX_OPS // 4  # per proposal: node/u16, bit, threshold compare, flip + draws
 WORD_INT_OPS = 2  # AND and add per word of a popcount (and one popcount)
 STEP_OPS = 10  # per sweep step: compare, bit set, loop
+W70_CHAINS, W70_REPEATS = 768, 32  # gset_70's C, with R cut from 288 to 32
 
 
 def phase(name, t0):
@@ -82,14 +103,32 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, int_ops: float, popc_ops: float):
+def bound(bytes_moved: float, int_ops: float, popc_ops: float, warp_reads: float = 0.0):
     """Least ms for the work: the largest of the bytes over the memory rate,
-    the integer operations over the INT32 rate and the popcounts over the
-    popcount rate (the two pipes may overlap, so their times do not add)."""
+    the integer operations over the INT32 rate, the popcounts over the
+    popcount rate and the warp-wide table reads over the warp schedulers'
+    rate (the pipes may overlap, so their times do not add)."""
     sm_clock = torch.cuda.get_device_properties(0).multi_processor_count * BOOST_CLOCK_HZ
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(int_ops / (INT32_PER_SM_CLOCK * sm_clock), popc_ops / (POPC_PER_SM_CLOCK * sm_clock))
+    t_ops = max(int_ops / (INT32_PER_SM_CLOCK * sm_clock), popc_ops / (POPC_PER_SM_CLOCK * sm_clock),
+                warp_reads / (WARP_INSTR_PER_SM_CLOCK * sm_clock))
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nonzero(t: torch.Tensor) -> int:
+    return int(torch.count_nonzero(t))
+
+
+def scan_work(chains: int, sweeps: int, needed, dense, read):
+    """Totals over `sweeps` sweeps (the first, then sweeps - 1 later ones) of
+    counts per sweep given as (first, later) pairs: `needed`, the popcounts
+    a chain needs, one per non-zero table word it meets (summed over the
+    sweep's rows, so the graph's sparsity counts); `dense`, the popcounts of
+    a scan of every word; `read`, the table words such a scan reads, once
+    per warp of 32 chains (a broadcast). -> (needed, dense, warp reads)."""
+    def total(pair):
+        return pair[0] + (sweeps - 1) * pair[1]
+    return chains * total(needed), chains * total(dense), -(-chains // 32) * total(read)
 
 
 def require_equal(name, a, b, errs, key):
@@ -108,10 +147,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from rlsolver_tpu_torch.algos.mcpg import GSET_PRESETS_40G, _build_steps, new_policy, solve_maxcut_mcpg
-    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.core.generate import build_g22_like, build_w22_like, build_w70_like
+    from rlsolver_tpu_torch.core.graph import Graph
     from rlsolver_tpu_torch.device import resolve_device
     from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
-    from rlsolver_tpu_torch.ops.kernels import build, codec, mcpg_sweep as sw, mh_sampler as mh
+    from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, mh_sampler as mh
+    from rlsolver_tpu_torch.ops.kernels import weighted_sweep as wsw
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
     dev = resolve_device("cuda")
@@ -123,8 +164,9 @@ def main() -> int:
     t0 = time.time()
     logs = build.build_all()
     for src, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"  {src}: " + " | ".join(regs))
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines() if "Used " in ln]
+        spills = sorted({ln.strip() for ln in log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln})
+        print(f"  {src}: {len(regs)} kernels, at most {max(regs)} registers, spills: {spills or 'none'}")
     phase("build", t0)
 
     # 2. kernel checks at the main path's shapes ---------------------------
@@ -188,7 +230,58 @@ def main() -> int:
     require_equal("K5 vs the f32 incremental-gain sweep", out, f32_bits, errs, "sweep_1flip")
     if not torch.equal(env32.obj(out), f32_vs):
         raise AssertionError("K5: cut values differ from the f32 sweep's")
-    del noise, out, plain, sub
+
+    # K6-K8b on the weighted stand-ins, at their paths' shapes
+    w22, w70 = build_w22_like(), build_w70_like()
+    l2 = engine.l2_bytes(dev)
+    chunk70 = engine.plan_sweep(w70, l2).node_chunk
+    flip_chunk70 = engine.plan_1flip(w70, l2).node_chunk
+    B70 = W70_CHAINS * W70_REPEATS  # the W70-like path's chains
+    B_PLAIN_W = 2048  # the plain sweep's chains in the checks (S * N Python steps)
+    for gw, chunk, name in ((w22, None, "K6"), (w70, chunk70, "K7")):
+        nw, tw = gw.num_nodes, wsw.WeightedSweepTables.build(gw, dev)
+        sub = torch.rand(B_PLAIN_W, nw, generator=gen, device=dev) < 0.5
+        noise_w = torch.randint(0, 65536, (2 * nw, B_PLAIN_W), generator=gen, device=dev, dtype=torch.int32)
+        out = wsw.mcpg_sweep_weighted(noise_w, sub, tw, num_sweeps=2, node_chunk=chunk)
+        plain = codec.unpack_bits(wsw._wsweep_plain(tw, codec.pack_bits(sub), nw, 2, 0.25, noise_w, 0), nw)
+        key = "mcpg_sweep_weighted" + ("_chunked" if chunk else "")
+        require_equal(f"{name} on {gw.name} (injected noise, chunk {chunk})", out, plain, errs, key)
+    tw22 = wsw.WeightedSweepTables.build(w22, dev)
+    out = wsw.mcpg_sweep_weighted_fused(4242, bits, tw22, num_sweeps=2)
+    sub = bits[:B_PLAIN_W].contiguous()
+    plain = codec.unpack_bits(wsw._wsweep_plain(tw22, codec.pack_bits(sub), n, 2, 0.25, None, 4242), n)
+    require_equal(f"K6 fused on W22like (first {B_PLAIN_W} of {B} chains)", out[:B_PLAIN_W], plain, errs,
+                  "mcpg_sweep_weighted")
+    forced = engine.pick_node_chunk(n, tw22.planes.shape[0])
+    require_equal(f"K7 fused (forced chunk {forced}) vs K6 fused on W22like",
+                  wsw.mcpg_sweep_weighted_fused(4242, bits, tw22, num_sweeps=2, node_chunk=forced), out, errs,
+                  "mcpg_sweep_weighted_chunked")
+    tw70 = wsw.WeightedSweepTables.build(w70, dev)
+    bits70 = torch.rand(B70, w70.num_nodes, generator=gen, device=dev) < 0.5
+    require_equal(f"K7 fused (chunk {chunk70}) vs K6 fused on W70like, {B70} chains",
+                  wsw.mcpg_sweep_weighted_fused(99, bits70, tw70, num_sweeps=2, node_chunk=chunk70),
+                  wsw.mcpg_sweep_weighted_fused(99, bits70, tw70, num_sweeps=2), errs, "mcpg_sweep_weighted_chunked")
+    del tw70, bits70
+    rng_pm = torch.Generator().manual_seed(3)
+    signs = (torch.randint(0, 2, (g.num_edges,), generator=rng_pm) * 2 - 1).numpy().astype("float32")
+    g_pm = Graph(g.num_nodes, g.edges, signs, "G22like_pm1")
+    require_equal("K6 fused vs K4 fused on G22like with random +-1 signs",
+                  wsw.mcpg_sweep_weighted_fused(5, bits, wsw.WeightedSweepTables.build(g_pm, dev), num_sweeps=S),
+                  sw.mcpg_sweep_fused(5, bits, sw.PackedSweepTables.build(g_pm, dev), num_sweeps=S), errs,
+                  "mcpg_sweep_weighted")
+    for gw, chunk, b_warm, name in ((w22, None, B_WARM, "K8a"), (w70, flip_chunk70, W70_CHAINS, "K8b")):
+        aw = wsw.WeightedAdjPlanes.build(gw, dev)
+        warm_w = torch.rand(b_warm, gw.num_nodes, generator=gen, device=dev) < 0.5
+        out = wsw.sweep_1flip_weighted(warm_w, aw, node_chunk=chunk)
+        key = "sweep_1flip_weighted" + ("_chunked" if chunk else "")
+        require_equal(f"{name} on {gw.name} (chunk {chunk})", out, wsw._sweep_1flip_plain(warm_w, aw), errs, key)
+        env_w = MaxcutEnv(gw, dev)
+        f32_bits, f32_vs = env_w.sweep_1flip(warm_w, env_w.obj(warm_w))
+        require_equal(f"{name} vs the f32 incremental-gain sweep", out, f32_bits, errs, key)
+        if not torch.equal(env_w.obj(out), f32_vs):
+            raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
+        del env_w
+    del noise, noise_w, out, plain, sub
     torch.cuda.synchronize()
     phase("check", t0)
 
@@ -228,6 +321,41 @@ def main() -> int:
             raise AssertionError(f"main path did not launch {k}")
     phase("main", t0)
 
+    # 5, 6. MCPG --fast on the weighted stand-ins ------------------------------
+    SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
+              "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_chunked")
+    weighted_counts = {}
+    for gw, cfg_w, sweep_k, flip_k in (
+        (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted", "sweep_1flip_weighted"),
+        (w70, dataclasses.replace(GSET_PRESETS_40G["gset_70"], repeat_times=W70_REPEATS, sampler="fused",
+                                  sweep_mode="packed", max_epoch_num=1, reset_epoch_num=16, seed=0),
+         "mcpg_sweep_weighted_chunked", "sweep_1flip_weighted_chunked"),
+    ):
+        t0 = time.time()
+        sweep_eng, flip_eng = engine.plan_sweep(gw, l2), engine.plan_1flip(gw, l2)
+        print(f"  {gw.name}: sweep plan {sweep_eng}, 1-flip plan {flip_eng}")
+        build.reset_counts()
+        best_x, best_v, ev = solve_maxcut_mcpg(gw, cfg_w, device=dev)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in build.KERNELS}
+        weighted_counts[gw.name] = counts
+        host = obj_maxcut(best_x.astype("int64"), gw)
+        times = [b[2] - a[2] for a, b in zip(ev.records, ev.records[1:])]
+        bw = cfg_w.total_mcmc_num * cfg_w.repeat_times
+        print(f"  C={cfg_w.total_mcmc_num} R={cfg_w.repeat_times} -> {bw} chains, N={gw.num_nodes}, "
+              f"num_ls={cfg_w.num_ls}; {len(times)} rounds")
+        print(f"  best cut {best_v} host re-score {host} seconds/round {times} samples/s {[bw / t for t in times]}")
+        print(f"  launches {counts}")
+        if host != best_v:
+            raise AssertionError(f"{gw.name}: best cut {best_v} != host re-score {host}")
+        for k in ("mh_sample_fused", sweep_k, flip_k):
+            if counts[k] <= 0:
+                raise AssertionError(f"{gw.name} path did not launch {k}")
+        wrong = [k for k in SWEEPS if k not in (sweep_k, flip_k) and counts[k]]
+        if wrong:
+            raise AssertionError(f"{gw.name}: the engine chose other kernels than expected: {wrong}")
+        phase(gw.name.lower().replace("like", ""), t0)
+
     # where one --fast round's device time goes (torch.profiler) -------------
     t0 = time.time()
     env = MaxcutEnv(g, dev, packed_sweep=True)
@@ -260,57 +388,125 @@ def main() -> int:
         print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
     phase("profile", t0)
 
-    # 5. CLI ------------------------------------------------------------------
+    # 8. CLI ------------------------------------------------------------------
     t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", "--alg", "mcpg", "--fast",
-                           "--graphs", "BA_100_ID0"], capture_output=True, text=True, cwd=REPO, timeout=600)
-    print("  " + proc.stdout.strip())
-    if proc.returncode != 0 or "obj=" not in proc.stdout:
+    with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
+        with open(os.path.join(data_dir, "W22like.txt"), "w") as f:  # gset format, 1-indexed
+            f.write(f"{w22.num_nodes} {w22.num_edges}\n")
+            f.writelines(f"{a + 1} {b + 1} {int(x)}\n" for (a, b), x in zip(w22.edges.tolist(), w22.weights))
+        proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", "--alg", "mcpg", "--fast",
+                               "--data-dir", data_dir, "--prefixes", "W22like", "--graphs", "BA_100_ID0"],
+                              capture_output=True, text=True, cwd=REPO, timeout=600)
+    print("  " + proc.stdout.strip().replace("\n", "\n  "))
+    if proc.returncode != 0 or proc.stdout.count("obj=") != 2:
         raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
     phase("cli", t0)
 
-    # 6. timings at the main path's shapes ----------------------------------
+    # 9. timings at each path's shapes ----------------------------------------
     t0 = time.time()
     words = codec.pack_bits(bits)
     warm_words = codec.pack_bits(warm)
     stream = proposal_stream()
     thr1, thr2 = sw._noisy_thresholds(tables, 0.25)
     word_bytes = 2 * B * w * 4  # chains read and written once
-    sweep_popc = B * n * (2 * w + (S - 1) * w)  # two mask planes in sweep 1, one after
-    sweep_int = WORD_INT_OPS * sweep_popc + B * n * S * (STEP_OPS + PHILOX_OPS // 4)
+    # K4: sweep 1 meets m_proc and m_unproc (and their negative planes),
+    # later sweeps m_all (and its negative plane)
+    sp = 2 if tables.signed else 1
+    first_w, later_w = 2 * sp * n * w, sp * n * w
+    k4_work = scan_work(B, S, (nonzero(tables.masks[: 2 * sp]), nonzero(tables.masks[2 * sp : 4 * sp])),
+                        (first_w, later_w), (first_w, later_w))
+    k4_steps = B * n * S * (STEP_OPS + PHILOX_OPS // 4)
+    k5_planes = torch.stack([adj.pos] + ([adj.neg] if adj.neg is not None else []))
+    k5_work = scan_work(B_WARM, 1, (nonzero(k5_planes), 0), (k5_planes.numel(), 0), (k5_planes.numel(), 0))
     rows = [
         dict(name="mh_sample_stream", kernel=mh.MH_STREAM, launches=stream_counts["mh_sample_stream"],
              run=lambda: mh.MH_STREAM.launch(stream, words, B, w, ROUNDS),
              plain=lambda: mh.mh_stream_plain(stream, words), plain_chains=B, reps=10,
-             bytes=word_bytes + stream.numel() * 4, int_ops=ROUNDS * B * K2_OPS, popc_ops=0),
+             bytes=word_bytes + stream.numel() * 4, step_ops=ROUNDS * B * K2_OPS),
         dict(name="mh_sample_fused", kernel=mh.MH_FUSED, launches=fast_counts["mh_sample_fused"],
              run=lambda: mh.MH_FUSED.launch(thr, words, B, w, n, ROUNDS, 12345),
              plain=lambda: mh.mh_fused_plain(12345, thr, words, n, ROUNDS), plain_chains=B, reps=10,
-             bytes=word_bytes + thr.numel() * 4, int_ops=ROUNDS * B * K3_OPS, popc_ops=0),
+             bytes=word_bytes + thr.numel() * 4, step_ops=ROUNDS * B * K3_OPS),
         dict(name="mcpg_sweep", kernel=sw.MCPG_SWEEP, launches=fast_counts["mcpg_sweep"],
              run=lambda: sw.MCPG_SWEEP.launch(tables.nodes, thr1, thr2, tables.masks, 0, None, 1, 777,
                                               0.25 / 65536.0, words, B, w, n, S),
              plain=lambda: sw._sweep_plain(tables, words[:B_PLAIN_SWEEP], n, S, 0.25, None, 777),
              plain_chains=B_PLAIN_SWEEP, reps=2,
-             bytes=word_bytes + tables.masks.numel() * 4 + 3 * n * 4, int_ops=sweep_int, popc_ops=sweep_popc),
+             bytes=word_bytes + tables.masks.numel() * 4 + 3 * n * 4, work=k4_work, step_ops=k4_steps),
         dict(name="sweep_1flip", kernel=sw.SWEEP_1FLIP, launches=fast_counts["sweep_1flip"],
              run=lambda: sw.SWEEP_1FLIP.launch(adj.pos, None, adj.deg_pos, None, warm_words, B_WARM, w, n),
              plain=lambda: sw._sweep_1flip_plain(warm, adj), plain_chains=B_WARM, reps=10,
-             bytes=2 * B_WARM * w * 4 + adj.pos.numel() * 4 + n * 4,
-             int_ops=B_WARM * n * (w * WORD_INT_OPS + STEP_OPS), popc_ops=B_WARM * n * w),
+             bytes=2 * B_WARM * w * 4 + k5_planes.numel() * 4 + n * 4, work=k5_work, step_ops=B_WARM * n * STEP_OPS),
+    ]
+
+    def weighted_sweep_row(name, kernel, tab, wds, chunk, launches):
+        """K6/K7 at a path's shapes (fused, S sweeps); the plain version
+        with injected noise on B_PLAIN_W chains and 2 sweeps."""
+        nn, bb, ww = tab.num_nodes, wds.shape[0], wds.shape[1]
+        e, m = tab.planes[0], tab.planes[1:]
+        # sweep 1 needs pc(x & m & e) and pc(x & m & ~e), later sweeps pc(x & m);
+        # the kernel scans every word, twice per plane in sweep 1, and reads e too
+        work = scan_work(bb, S, (nonzero(m & e) + nonzero(m & ~e), nonzero(m)), (2 * m.numel(), m.numel()),
+                         (tab.planes.numel(), m.numel()))
+        t1, t2 = sw._noisy_thresholds(tab, 0.25)
+        nz = torch.randint(0, 65536, (2 * nn, B_PLAIN_W), generator=gen, device=dev, dtype=torch.int32)
+        extra = [chunk] if chunk else []
+        return dict(name=name, kernel=kernel, launches=launches,
+                    run=lambda: kernel.launch(tab.nodes, t1, t2, tab.planes, tab.k, int(tab.signed), None, 1, 777,
+                                              0.25 / 65536.0, wds, bb, ww, nn, S, *extra),
+                    plain=lambda: wsw._wsweep_plain(tab, wds[:B_PLAIN_W], nn, 2, 0.25, nz, 0),
+                    plain_chains=B_PLAIN_W, plain_sweeps=2, reps=1,
+                    bytes=2 * bb * ww * 4 + tab.planes.numel() * 4 + 3 * nn * 4, work=work,
+                    step_ops=bb * nn * S * (STEP_OPS + PHILOX_OPS // 4))
+
+    def weighted_flip_row(name, kernel, aw, bits_w, chunk, launches, reps):
+        nn, bb = aw.num_nodes, bits_w.shape[0]
+        ww = codec.num_words(nn)
+        wds = codec.pack_bits(bits_w)
+        work = scan_work(bb, 1, (nonzero(aw.planes), 0), (aw.planes.numel(), 0), (aw.planes.numel(), 0))
+        extra = [chunk] if chunk else []
+        return dict(name=name, kernel=kernel, launches=launches,
+                    run=lambda: kernel.launch(aw.planes, aw.wdeg, aw.k, int(aw.signed), wds, bb, ww, nn, *extra),
+                    plain=lambda: wsw._sweep_1flip_plain(bits_w, aw), plain_chains=bb, reps=reps,
+                    bytes=2 * bb * ww * 4 + aw.planes.numel() * 4 + nn * 4, work=work, step_ops=bb * nn * STEP_OPS)
+
+    c22, c70 = weighted_counts["W22like"], weighted_counts["W70like"]
+    n70 = w70.num_nodes
+    rows += [
+        weighted_sweep_row("mcpg_sweep_weighted", wsw.WSWEEP, tw22, words, None, c22["mcpg_sweep_weighted"]),
+        weighted_sweep_row("mcpg_sweep_weighted_chunked", wsw.WSWEEP_CHUNKED, wsw.WeightedSweepTables.build(w70, dev),
+                           codec.pack_bits(torch.rand(B70, n70, generator=gen, device=dev) < 0.5), chunk70,
+                           c70["mcpg_sweep_weighted_chunked"]),
+        weighted_flip_row("sweep_1flip_weighted", wsw.WSWEEP_1FLIP, wsw.WeightedAdjPlanes.build(w22, dev),
+                          torch.rand(B_WARM, n, generator=gen, device=dev) < 0.5, None,
+                          c22["sweep_1flip_weighted"], 10),
+        weighted_flip_row("sweep_1flip_weighted_chunked", wsw.WSWEEP_1FLIP_CHUNKED,
+                          wsw.WeightedAdjPlanes.build(w70, dev),
+                          torch.rand(W70_CHAINS, n70, generator=gen, device=dev) < 0.5, flip_chunk70,
+                          c70["sweep_1flip_weighted_chunked"], 3),
     ]
     kernels = []
     for row in rows:
         ms = cuda_ms(row["run"], row["reps"])
         plain_ms = cuda_ms(row["plain"], 1, warmup=False)  # slow; warmed up by the checks
-        bound_ms, bound_by = bound(row["bytes"], row["int_ops"], row["popc_ops"])
+        # the bound counts the popcounts the data needs; the dense bound,
+        # kept beside it, those of a scan of every table word
+        popc, dense_popc, warp_reads = row.get("work", (0, 0, 0))
+        bound_ms, bound_by = bound(row["bytes"], WORD_INT_OPS * popc + row["step_ops"], popc, warp_reads)
         k = row["kernel"]
         kernels.append(dict(
             name=row["name"], route="cuda", source=f"rlsolver_tpu_torch/csrc/{k.source}",
             replaces=k.replaces, launches=row["launches"], max_abs_err=errs[row["name"]], ms=ms, plain_ms=plain_ms,
             plain_chains=row["plain_chains"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         ))
-        print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}); "
+        if "work" in row:
+            kernels[-1]["dense_bound_ms"] = bound(row["bytes"], WORD_INT_OPS * dense_popc + row["step_ops"],
+                                                  dense_popc)[0]
+            kernels[-1]["needed_over_dense_popcounts"] = popc / dense_popc
+        if "plain_sweeps" in row:
+            kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
+        print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; dense bound "
+              f"{kernels[-1].get('dense_bound_ms', bound_ms):.3f} ms); "
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
     phase("time", t0)
 

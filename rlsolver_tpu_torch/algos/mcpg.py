@@ -12,8 +12,11 @@ One round:
 
 Chains are laid out [repeat_times * total_mcmc_num, N], repeat r of chain c
 at row r * C + c. With `sampler="fused"` and `sweep_mode="packed"` (the CLI's
-`--fast`) the sampler and the sweeps run the packed CUDA kernels K3 and K4;
-the warm start's local search ends in K5 whenever `sweep_mode="packed"`.
+`--fast`) the sampler runs the packed CUDA kernel K3 and the sweeps the one
+`FusedSweepEngine` picks: K4 on {0, +-1}-weight graphs, K6 or K7 on other
+integer weights. Whenever `sweep_mode="packed"` the warm start's local search
+ends in K5, K8a or K8b. On non-integer weights `sweep_mode="packed"` raises
+ValueError, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
 from rlsolver_tpu_torch.eval.evaluator import Evaluator
 from rlsolver_tpu_torch.models.policy import BernoulliPolicy
-from rlsolver_tpu_torch.ops.kernels.mcpg_sweep import PackedSweepTables, mcpg_sweep_fused
+from rlsolver_tpu_torch.ops.kernels.engine import FusedSweepEngine
 from rlsolver_tpu_torch.ops.kernels.mh_sampler import mh_sample_fused
 from rlsolver_tpu_torch.ops.reductions import pick_xs_by_vs, update_xs_by_vs
 from rlsolver_tpu_torch.ops.sampling import metropolis_bitflip_chain
@@ -51,7 +54,7 @@ class MCPGConfig:
     change_times: Optional[int] = None  # MH accept budget per chain; default N/10
     warmup_ls_rounds: int = 4  # incumbent warm start via parallel local search
     seed: int = 0
-    sweep_mode: str = "sequential"  # "sequential" (gathers) | "packed" (kernel K4)
+    sweep_mode: str = "sequential"  # "sequential" (gathers) | "packed" (kernels K4, K6, K7)
     # "budgeted" (reference accept budget) | "fused" (kernel K3, 2 * change_times rounds)
     sampler: str = "budgeted"
 
@@ -113,7 +116,7 @@ def _build_steps(env: MaxcutEnv, data: Optional[SweepData], cfg: MCPGConfig) -> 
     if cfg.sampler not in ("budgeted", "fused"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.sweep_mode == "packed":
-        tables = PackedSweepTables.build(env.graph, env.device)
+        engine = FusedSweepEngine.build(env.graph, env.device)
     elif cfg.sweep_mode != "sequential":
         raise NotImplementedError(f"sweep_mode {cfg.sweep_mode!r} is not yet ported")
 
@@ -124,7 +127,7 @@ def _build_steps(env: MaxcutEnv, data: Optional[SweepData], cfg: MCPGConfig) -> 
         else:
             mh = metropolis_bitflip_chain(gen, probs, start_bits, change_times).samples
         if cfg.sweep_mode == "packed":
-            ls_bits = mcpg_sweep_fused(_kernel_seed(gen), mh, tables, num_sweeps=cfg.num_ls)
+            ls_bits = engine.sweep(_kernel_seed(gen), mh, cfg.num_ls)
         else:
             xt = degree_ordered_sweep(gen, mcpg_init_values(mh), data, num_sweeps=cfg.num_ls)
             ls_bits = xt[:, :num_nodes] > 0.5
@@ -178,7 +181,7 @@ def solve_maxcut_mcpg(
     unless `device="cpu"`. `time_budget` (seconds of wall clock after the
     warm start) stops the epoch loop early."""
     dev = resolve_device(device)
-    # packed sweep_mode also runs the warm start's 1-flip sweep on K5
+    # packed sweep_mode also runs the warm start's 1-flip sweep on K5 or K8
     env = MaxcutEnv(graph, dev, packed_sweep=cfg.sweep_mode == "packed")
     data = SweepData.build(graph, dev) if cfg.sweep_mode == "sequential" else None
     C, R = cfg.total_mcmc_num, cfg.repeat_times

@@ -21,6 +21,8 @@ import random
 import re
 from typing import Dict, List, Optional, Set
 
+import numpy as np
+
 from rlsolver_tpu_torch.config import GraphType
 from rlsolver_tpu_torch.core.graph import Graph
 
@@ -160,3 +162,27 @@ def build_g22_like() -> Graph:
     `nx.gnm_random_graph(2000, 19990, seed=22)`."""
     edges = gnm_edges(2000, 19990, seed=22)
     return Graph.from_edge_list(2000, [(a, b, 1.0) for a, b in edges], name="G22like")
+
+
+def build_weighted_gnm(n: int, m: int, seed: int, name: str) -> Graph:
+    """The G(n, m) graph of `gnm_edges(n, m, seed)` with integer weights
+    drawn uniformly from +-{1..7} by `numpy.random.default_rng(seed)` (the
+    weight range the JAX package sized its bit-plane kernels for: 3 planes,
+    signed), one magnitude and one sign per edge in edge order."""
+    edges = gnm_edges(n, m, seed=seed)
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 8, size=len(edges)) * rng.choice((-1, 1), size=len(edges))
+    return Graph.from_edge_list(n, [(a, b, float(x)) for (a, b), x in zip(edges, w)], name=name)
+
+
+def build_w22_like() -> Graph:
+    """Integer-weighted stand-in at G22's size: the G22-like topology
+    (2000 nodes, 19990 edges, seed 22) with weights in +-{1..7}."""
+    return build_weighted_gnm(2000, 19990, 22, "W22like")
+
+
+def build_w70_like() -> Graph:
+    """Integer-weighted stand-in at G70's size: the G70-like topology of the
+    JAX package's instance-wise runs (10000 nodes, 9999 edges, seed 70) with
+    weights in +-{1..7}."""
+    return build_weighted_gnm(10000, 9999, 70, "W70like")

@@ -13,7 +13,10 @@
 
 namespace rl {
 
+// Plain integer literals: ops/kernels/build.py reads these two for the
+// engine's chunk sizing (`header_constant`).
 constexpr int kChainsPerBlock = 128;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the dynamic shared memory a block may use on an H100
 
 __host__ __device__ inline int smem_stride(int W) { return W | 1; }
 
@@ -64,21 +67,39 @@ __device__ inline uint32_t pick(const uint4& v, int q) {
 constexpr uint32_t kTagMH = 0x4D48u;
 constexpr uint32_t kTagSweep = 0x5357u;
 
-// Threads per block and dynamic shared memory for a chain tile of W words,
-// or 0 threads when even 32 chains do not fit.
-inline int chains_per_block(int W, size_t* smem) {
+// The u16 noise of sweep step t = s * N + k of a chain: injected
+// (noise [S * N, B]) or word t & 3 of Philox under (seed, kTagSweep), where
+// `d` carries the block of draws t & ~3 between calls (t rises from 0).
+__device__ __forceinline__ uint32_t sweep_u16(bool prng, uint4& d, int t, long long chain, uint32_t seed,
+                                              const int32_t* __restrict__ noise, int B) {
+  if (prng) {
+    if ((t & 3) == 0) d = philox4x32_10(make_uint4(t >> 2, (uint32_t)chain, 0u, 0u), seed, kTagSweep);
+    return pick(d, t & 3) & 0xFFFFu;
+  }
+  return static_cast<uint32_t>(__ldg(noise + (long long)t * B + chain));
+}
+
+__device__ __forceinline__ void set_bit(uint32_t* my, int node, bool v) {
+  const uint32_t m = 1u << (node & 31);
+  my[node >> 5] = v ? (my[node >> 5] | m) : (my[node >> 5] & ~m);
+}
+
+// Threads per block and dynamic shared memory for a chain tile of W words
+// plus `extra` bytes (a kernel's staging buffers), or 0 threads when even
+// 32 chains do not fit.
+inline int chains_per_block(int W, size_t* smem, size_t extra = 0) {
   int t = kChainsPerBlock;
   while (t >= 32) {
-    *smem = (size_t)t * smem_stride(W) * sizeof(uint32_t);
-    if (*smem <= 227 * 1024) return t;
+    *smem = (size_t)t * smem_stride(W) * sizeof(uint32_t) + extra;
+    if (*smem <= kMaxSmem) return t;
     t /= 2;
   }
   return 0;
 }
 
 template <typename K>
-inline cudaError_t prepare(K kernel, int W, int* threads, size_t* smem) {
-  *threads = chains_per_block(W, smem);
+inline cudaError_t prepare(K kernel, int W, int* threads, size_t* smem, size_t extra = 0) {
+  *threads = chains_per_block(W, smem, extra);
   if (*threads == 0) return cudaErrorInvalidValue;
   if (*smem > 48 * 1024)
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);

@@ -25,7 +25,10 @@
 // limit: the chains are read and written once per call, and the mask tables
 // (3 or 6 x N x W words, 1.5 MB at N = 2000) are the same for every chain, so
 // they stay in L2 and L1 and each warp reads a mask word as one broadcast.
-// As in the MH kernel, one thread runs one chain and a block keeps its 128
+// The function needs less: a popcount only where a mask word is non-zero
+// (27% of a row's words on the G22-like graph), which is what chip_smoke.py's
+// bound counts. Scanning every word keeps the kernel simple; a list of each
+// row's non-zero words would skip the rest. As in the MH kernel, one thread runs one chain and a block keeps its 128
 // chains in shared memory for all steps.
 #include "common.cuh"
 
@@ -41,11 +44,6 @@ __device__ __forceinline__ int signed_popcount(const uint32_t* my, const uint32_
     if (kSigned) p -= __popc(x & __ldg(neg + j));
   }
   return p;
-}
-
-__device__ __forceinline__ void set_bit(uint32_t* my, int node, bool v) {
-  const uint32_t m = 1u << (node & 31);
-  my[node >> 5] = v ? (my[node >> 5] | m) : (my[node >> 5] & ~m);
 }
 
 // masks: [P, N, W] planes, P = 3 (proc, unproc, all) or 6 (each followed by
@@ -81,16 +79,9 @@ __global__ void mcpg_sweep_kernel(const int32_t* __restrict__ nodes, const float
         nbr = signed_popcount<kSigned>(my, m_all + row, m_all + plane + row, W);
         thr = __ldg(thr2 + k);
       }
-      uint32_t u16;
-      if (kPrng) {
-        if ((sk & 3) == 0)
-          d = rl::philox4x32_10(make_uint4(sk >> 2, (uint32_t)chain, 0u, 0u), seed, rl::kTagSweep);
-        u16 = rl::pick(d, sk & 3) & 0xFFFFu;
-      } else {
-        u16 = static_cast<uint32_t>(__ldg(noise + (long long)sk * B + chain));
-      }
+      const uint32_t u16 = rl::sweep_u16(kPrng, d, sk, chain, seed, noise, B);
       const float lhs = __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), scale));
-      set_bit(my, __ldg(nodes + k), lhs < thr);
+      rl::set_bit(my, __ldg(nodes + k), lhs < thr);
     }
   }
   rl::store_chains(sm, words, b0, nb, W);

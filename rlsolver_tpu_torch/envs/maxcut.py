@@ -6,10 +6,13 @@ State is `xs: bool [num_sims, num_nodes]`. The objective is one matmul
 reference's `local_search_inplace` (`env_L2A.py:87-116` in RLSolver): noisy
 top-k multi-flips with elitist accepts, then a greedy 1-flip sweep.
 
-`sweep_1flip` runs the packed kernel (K5) when the env is built with
-`packed_sweep=True`, else an f32 sweep with rank-1 gain updates; the two are
-bit-identical on {0, +-1}-weight graphs. `packed_sweep=True` on other weights
-raises NotImplementedError: their kernels (K8) are not ported yet.
+`sweep_1flip` runs a packed kernel when the env is built with
+`packed_sweep=True`: K5 on {0, +-1}-weight graphs, the bit-plane kernel K8a
+(or K8b, node-chunked, for tables beyond the card's L2) on other integer
+weights, as `engine.FlipSweepEngine` picks. On weights that are not integers
+(or |w| >= 2^15) no packed path is set and the env keeps the f32 sweep with
+rank-1 gain updates, as the JAX package does. The packed and f32 sweeps are
+bit-identical on integer weights.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops import cut as cut_ops
-from rlsolver_tpu_torch.ops.kernels.mcpg_sweep import pack_adjacency, sweep_1flip_packed
+from rlsolver_tpu_torch.ops.kernels.engine import FlipSweepEngine
 from rlsolver_tpu_torch.ops.reductions import update_xs_by_vs
 
 
@@ -35,7 +38,12 @@ class MaxcutEnv:
         self.device = resolve_device(device)
         self.mode = mode
         self.cg = cut_ops.CutGraph.build(graph, self.device, with_dense=mode != "sparse")
-        self._adj_packed = pack_adjacency(graph, self.device) if packed_sweep else None
+        self.flip_engine: Optional[FlipSweepEngine] = None
+        if packed_sweep:
+            try:
+                self.flip_engine = FlipSweepEngine.build(graph, self.device)
+            except ValueError:
+                pass  # non-integer weights: the f32 sweep below, as in the JAX package
 
     def random_xs(self, gen: torch.Generator, num_sims: int) -> torch.Tensor:
         """Uniform random bits with node 0 pinned to 0 (breaks the cut symmetry)."""
@@ -80,8 +88,8 @@ class MaxcutEnv:
     def sweep_1flip(self, xs: torch.Tensor, vs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One greedy sequential 1-flip sweep over all nodes (ascending),
         strict improvements only. Sign convention: bit 1 -> sign +1."""
-        if self._adj_packed is not None:
-            out = sweep_1flip_packed(xs, self._adj_packed)
+        if self.flip_engine is not None:
+            out = self.flip_engine.sweep(xs)
             return out, self.obj(out)
         if self.cg.adj is None:
             raise NotImplementedError("sweep_1flip needs the dense adjacency")

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +33,16 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def header_constant(name: str, header: str = "common.cuh") -> int:
+    """The integer literal of `constexpr <type> <name> = <literal>;` in a
+    csrc header, so that Python sizing and the kernels share one value."""
+    with open(os.path.join(CSRC, header)) as f:
+        m = re.search(rf"constexpr\s+\w+\s+{name}\s*=\s*(\d+)\s*;", f.read())
+    if m is None:
+        raise KeyError(f"{name} is not an integer constexpr in {header}")
+    return int(m.group(1))
 
 
 def _nvcc() -> str:

@@ -22,7 +22,10 @@ graphs each mask has a negative-edge plane whose popcount is subtracted.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mcpg_sweep.cu`);
 on a CPU tensor it runs the plain PyTorch version. The table builders put
-their tensors on `cuda` unless the caller passes `device="cpu"`.
+their tensors on `cuda` unless the caller passes `device="cpu"`. On a graph
+with other weights they raise ValueError, as the JAX package does; the
+dispatch in `engine.py` and `MaxcutEnv` then takes the bit-plane kernels
+K6-K8 of `weighted_sweep.py`.
 """
 
 from __future__ import annotations
@@ -48,15 +51,15 @@ SWEEP_1FLIP = register(Kernel(
 ))
 
 
+def is_unit_weight(graph: Graph) -> bool:
+    """Whether every weight is in {0, +-1}, the graphs K4 and K5 take."""
+    return bool(np.all(np.isin(graph.weights, (-1.0, 0.0, 1.0))))
+
+
 def _signed_adjacency(graph: Graph) -> np.ndarray:
-    adj = graph.adjacency_dense()
-    if not np.all(np.isin(adj, (-1.0, 0.0, 1.0))):
-        raise NotImplementedError(
-            "the packed kernels take unit-weight or {0, +-1}-weight graphs; other "
-            "integer weights need the bit-plane kernels K6-K8 "
-            "(rlsolver_tpu/ops/pallas/weighted_sweep.py), which are not ported yet"
-        )
-    return adj
+    if not is_unit_weight(graph):
+        raise ValueError("the packed kernels K4/K5 take {0, +-1}-weight graphs only")
+    return graph.adjacency_dense()
 
 
 def _pack_rows(rows: np.ndarray, device) -> torch.Tensor:
@@ -122,12 +125,20 @@ def _sweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed):
     """Plain version of the K4 kernel on unpacked f32 bits. nbr is linear in
     x, so each step's popcounts fold into one row of an f32 matrix:
     C1 = m_proc + 2 m_unproc and C2 = m_all (minus the negative planes)."""
-    x = unpack_bits(words, n).to(torch.float32)
     m = unpack_bits(tables.masks.reshape(-1, tables.masks.shape[-1]), n)
     m = m.reshape(tables.masks.shape[0], n, n).to(torch.float32)
     if tables.signed:
         m = m[0::2] - m[1::2]
-    c1, c2 = m[0] + 2.0 * m[1], m[2]
+    return sweep_steps_plain(m[0] + 2.0 * m[1], m[2], tables, words, n, num_sweeps, noise_scale, noise_u16, seed)
+
+
+def sweep_steps_plain(c1, c2, tables, words, n, num_sweeps, noise_scale, noise_u16, seed):
+    """The step loop of the plain sweeps (K4, K6, K7): nbr = x @ C1[k] in the
+    first sweep and x @ C2[k] after it, rows in sweep order; f32 sums of
+    integers, exact below 2^24 as in the JAX twin. `tables` gives nodes and
+    thresholds. Noise from `noise_u16` [S*N, B] or, when it is None, draw
+    t = s*N + k of each chain from Philox under `seed`."""
+    x = unpack_bits(words, n).to(torch.float32)
     thr1, thr2 = _noisy_thresholds(tables, noise_scale)
     scale = torch.tensor(noise_scale / 65536.0, dtype=torch.float32, device=x.device)
     chains = torch.arange(x.shape[0], device=x.device)

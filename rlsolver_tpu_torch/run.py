@@ -66,8 +66,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--write", action="store_true", help="write result files")
     p.add_argument("--fast", action="store_true",
-                   help="packed CUDA kernel paths ({0, +-1}-weight graphs): MCPG "
-                   "sampler='fused' + sweep_mode='packed'")
+                   help="packed CUDA kernel paths (integer-weight graphs, |w| < 2^15): "
+                   "MCPG sampler='fused' + sweep_mode='packed'")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.alg not in PORTED_ALGS:

@@ -28,6 +28,8 @@ from rlsolver_tpu_torch.ops import cut as tcut
 from rlsolver_tpu_torch.ops.sweeps import SweepData
 from rlsolver_tpu_torch.ops.kernels import mcpg_sweep as tsw
 from rlsolver_tpu_torch.ops.kernels import mh_sampler as tmh
+from rlsolver_tpu_torch.ops.kernels import weighted_sweep as twsw
+from rlsolver_tpu_torch.ops.kernels.engine import FlipSweepEngine, FusedSweepEngine
 from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 from rlsolver_tpu_torch.run import main as cli_main
 
@@ -158,6 +160,10 @@ BUILDERS = {
     "PackedSweepTables.build": lambda g, dev: tsw.PackedSweepTables.build(g, dev).masks,
     "pack_adjacency": lambda g, dev: tsw.pack_adjacency(g, dev).pos,
     "BernoulliPolicy": lambda g, dev: BernoulliPolicy(g.num_nodes, device=dev).logits,
+    "WeightedSweepTables.build": lambda g, dev: twsw.WeightedSweepTables.build(g, dev).planes,
+    "WeightedAdjPlanes.build": lambda g, dev: twsw.WeightedAdjPlanes.build(g, dev).planes,
+    "FusedSweepEngine.build": lambda g, dev: FusedSweepEngine.build(g, dev).tables.nodes,
+    "FlipSweepEngine.build": lambda g, dev: FlipSweepEngine.build(g, dev).tables.pos,
 }
 
 

@@ -3,7 +3,9 @@ Tables equal JAX's word for word (without the TPU's lane padding); K4 fed
 JAX's noise is bit-exact with `mcpg_sweep_reference` and the Pallas kernel
 (interpret mode), and with zero noise equals both packages'
 `degree_ordered_sweep`; K5 is bit-exact with the Pallas kernel and the f32
-incremental-gain sweep."""
+incremental-gain sweep. With `packed_sweep=True` on integer weights the env
+takes the bit-plane 1-flip sweep and equals the f32 sweep; on non-integer
+weights it keeps the f32 sweep, and packed MCPG raises, as in JAX."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +25,8 @@ from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
 from rlsolver_tpu_torch.ops import sweeps as t_sweeps
 from rlsolver_tpu_torch.ops.kernels import mcpg_sweep as tsw
 from rlsolver_tpu_torch.ops.kernels import philox
+from rlsolver_tpu_torch.ops.kernels import weighted_sweep as twsw
+from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
 torch.set_num_threads(1)
 
@@ -128,11 +132,37 @@ def test_k5_plain_bit_exact_vs_jax(setup):
     np.testing.assert_array_equal(vs.numpy(), np.asarray(j_vs))
 
 
-def test_weighted_graph_not_ported():
-    g = Graph.from_edge_list(3, [(0, 1, 2.0), (1, 2, 1.0)], name="w")
-    with pytest.raises(NotImplementedError, match="K6-K8"):
+def _int_weighted_graph():
+    """BA_100_ID2 with integer weights in +-{1..5}, drawn from a seed."""
+    rng = np.random.default_rng(17)
+    edges = [(a, b, float(rng.integers(1, 6) * rng.choice((-1, 1))))
+             for a, b, _ in j_graph_from_name("BA_100_ID2").to_edge_list()]
+    return Graph.from_edge_list(100, edges, name="BA_100_w5")
+
+
+def test_env_packed_sweep_on_integer_weights_equals_f32_sweep():
+    g = _int_weighted_graph()
+    env = MaxcutEnv(g, "cpu", packed_sweep=True)
+    assert env.flip_engine is not None and env.flip_engine.weighted
+    ref = MaxcutEnv(g, "cpu")
+    x = torch.from_numpy(np.random.default_rng(8).random((48, 100)) < 0.5)
+    out, vs = env.sweep_1flip(x, env.obj(x))
+    ref_bits, ref_vs = ref.sweep_1flip(x, ref.obj(x))
+    assert torch.equal(out, ref_bits)
+    assert torch.equal(vs, ref_vs)
+
+
+def test_non_integer_weights_take_the_f32_sweep_and_refuse_packed_mcpg():
+    g = Graph.from_edge_list(4, [(0, 1, 0.5), (1, 2, 1.0), (2, 3, 2.0)], name="frac")
+    with pytest.raises(ValueError, match="0, \\+-1"):
         tsw.PackedSweepTables.build(g, "cpu")
-    with pytest.raises(NotImplementedError, match="K6-K8"):
-        MaxcutEnv(g, "cpu", packed_sweep=True)
-    with pytest.raises(NotImplementedError, match="K6-K8"):
+    with pytest.raises(ValueError, match="integer"):
+        twsw.WeightedSweepTables.build(g, "cpu")
+    env = MaxcutEnv(g, "cpu", packed_sweep=True)
+    assert env.flip_engine is None  # as in the JAX package: the f32 sweep
+    x = torch.tensor([[False, True, True, False]])
+    out, vs = env.sweep_1flip(x, env.obj(x))
+    assert torch.equal(out, MaxcutEnv(g, "cpu").sweep_1flip(x, env.obj(x))[0])
+    assert float(vs[0]) == obj_maxcut(out[0].numpy().astype(np.int64), g)
+    with pytest.raises(ValueError, match="integer"):
         solve_maxcut_mcpg(g, MCPGConfig(sweep_mode="packed"), device="cpu")
