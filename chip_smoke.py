@@ -14,10 +14,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                warm starts' 2048 and 768 chains, also against the f32 sweep);
                fused K6 equals fused K7 (forced chunk) and, on G22-like with
                random +-1 signs, fused K4; the fused sampler's marginals are
-               checked against the policy;
+               checked against the policy; K10, the f32 1-flip sweep, on
+               L2A's 2048 chains of G22-like (also against K5) and of
+               F22-like (the same topology, weights uniform in [0.5, 1.5));
+               K11 and K12 on 8192 chains x 1024 rounds of G22-like (the MH
+               shapes of bench.py), against each other on probs of the
+               2^-16 grid, and K11's marginals against the policy;
   3. stream  — K2, the injected-randomness twin of K3, which no solver path
                runs: `mh_sample_stream` alone on the main path's shapes, its
                launches counted in that run;
+     injected — K11 and K12 likewise (`mh_sample_onehot`, `mh_sample_packed`)
+               on the shapes of their check;
   4. main    — MCPG `--fast` (sampler="fused", sweep_mode="packed") on the
                G22-like instance with the gset_22 preset of GSET_PRESETS_40G
                (2048 x 512 = 2^20 chains), cut to one epoch of 4 rounds; the
@@ -32,11 +39,20 @@ Phases (each prints its seconds; any failure exits non-zero):
                launch;
   7. profile — device time by kernel of one --fast round on G22-like
                (torch.profiler);
-  8. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
-               and on W22-like written as a gset file;
-  9. time    — kernel, plain-version and bound times at each path's shapes;
+  8. l2a     — `solve_maxcut_l2a` on G22-like at the default widths of
+               L2AConfig (256 sims x 8 repeats, top_k 16, 2 searchers, 4
+               multi-flip iterations, embed 64, 4 heads, 2 encoder layers,
+               mlp 256), depth cut as printed; every local search ends in K10,
+               and the plain f32 loop is made to raise for the run; then the
+               device time by kernel of one rollout step and one PPO update;
+  9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
+               and on W22-like written as a gset file, and `--alg l2a` and
+               `--alg local_search` on BA_100_ID0 with and without `--fast`;
+ 10. time    — kernel, plain-version and bound times at each path's shapes;
                a sweep's bound counts the popcounts its table's non-zero
-               words need, with `dense_bound_ms` (every word) beside it.
+               words need (K10: the f32 updates its accepted flips need),
+               with `dense_bound_ms` (every word; K10: every rank-1 update)
+               beside it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -69,6 +85,7 @@ BOOST_CLOCK_HZ = 1.98e9
 INT32_PER_SM_CLOCK = 64
 POPC_PER_SM_CLOCK = 16
 WARP_INSTR_PER_SM_CLOCK = 4
+FP32_PER_SM_CLOCK = 128  # f32 add or multiply results (same table)
 
 # integer operations per unit of work, counted from the kernels' sources
 PHILOX_OPS = 100  # one Philox4x32-10 call (4 draws)
@@ -77,6 +94,15 @@ K3_OPS = 12 + PHILOX_OPS // 4  # per proposal: node/u16, bit, threshold compare,
 WORD_INT_OPS = 2  # AND and add per word of a popcount (and one popcount)
 STEP_OPS = 10  # per sweep step: compare, bit set, loop
 W70_CHAINS, W70_REPEATS = 768, 32  # gset_70's C, with R cut from 288 to 32
+# K10, per gain of an accepted flip: one f32 result. The product
+# (-2 s_i) s_j A_ij is exact, so one FMA of it gives the plain loop's bits,
+# and the sign s_j needs no operation of its own per gain: kept in the gain
+# (h_j = s_j g_j), the update is h_j = fma(-2 s_i, A_ij, h_j), which rounds
+# as the plain loop does (round to nearest is odd-symmetric).
+K10_F32_OPS = 1
+K10_STEP_OPS = 2  # per (chain, node): the compare and the add to the cut
+K11_OPS = 10 + 3  # per proposal: node/word/bit decode, read bit, flip; q, u*q, 1-q in f32
+MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
 
 
 def phase(name, t0):
@@ -103,15 +129,16 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, int_ops: float, popc_ops: float, warp_reads: float = 0.0):
+def bound(bytes_moved: float, int_ops: float, popc_ops: float, warp_reads: float = 0.0, f32_ops: float = 0.0):
     """Least ms for the work: the largest of the bytes over the memory rate,
     the integer operations over the INT32 rate, the popcounts over the
-    popcount rate and the warp-wide table reads over the warp schedulers'
-    rate (the pipes may overlap, so their times do not add)."""
+    popcount rate, the warp-wide table reads over the warp schedulers' rate
+    and the f32 operations over the FP32 rate (the pipes may overlap, so
+    their times do not add)."""
     sm_clock = torch.cuda.get_device_properties(0).multi_processor_count * BOOST_CLOCK_HZ
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = max(int_ops / (INT32_PER_SM_CLOCK * sm_clock), popc_ops / (POPC_PER_SM_CLOCK * sm_clock),
-                warp_reads / (WARP_INSTR_PER_SM_CLOCK * sm_clock))
+                warp_reads / (WARP_INSTR_PER_SM_CLOCK * sm_clock), f32_ops / (FP32_PER_SM_CLOCK * sm_clock))
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -132,13 +159,37 @@ def scan_work(chains: int, sweeps: int, needed, dense, read):
 
 
 def require_equal(name, a, b, errs, key):
-    """Bit-exact check of a kernel's output against its plain version; keeps
+    """Exact check of a kernel's output against its plain version; keeps
     the largest |difference| seen for each kernel (0 when it passes)."""
-    err = float((a != b).any())  # outputs are bits: max |a - b| is 0 or 1
+    if a.dtype == torch.bool:
+        err = float((a != b).any())  # bits: max |a - b| is 0 or 1
+    else:
+        err = float((a.double() - b.double()).abs().max())
     errs[key] = max(errs.get(key, 0.0), err)
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: kernel and plain version differ in {int((a != b).sum())} entries")
-    print(f"  {name}: bit-exact ({tuple(a.shape)})", flush=True)
+    print(f"  {name}: {'bit-exact' if a.dtype == torch.bool else 'equal values'} ({tuple(a.shape)})", flush=True)
+
+
+def profile_device(label: str, fn, top: int = 12) -> None:
+    """Prints the wall time of one fn() (ending in a synchronize), the device
+    busy time and its share, and the device time of the top kernels
+    (torch.profiler device events; the CPU ops that launched them carry
+    the same device time again and are left out)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t0)
+    dev_events = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_events.sort(key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms, _ in dev_events)
+    print(f"  {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for key, ms, count in dev_events[:top]:
+        print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
 
 
 def main() -> int:
@@ -146,13 +197,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from rlsolver_tpu_torch.algos import l2a
     from rlsolver_tpu_torch.algos.mcpg import GSET_PRESETS_40G, _build_steps, new_policy, solve_maxcut_mcpg
-    from rlsolver_tpu_torch.core.generate import build_g22_like, build_w22_like, build_w70_like
+    from rlsolver_tpu_torch.core.generate import build_f22_like, build_g22_like, build_w22_like, build_w70_like
     from rlsolver_tpu_torch.core.graph import Graph
     from rlsolver_tpu_torch.device import resolve_device
     from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
+    from rlsolver_tpu_torch.models.transformer import PolicyTrsWithValue
+    from rlsolver_tpu_torch.ops import cut
     from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, mh_sampler as mh
-    from rlsolver_tpu_torch.ops.kernels import weighted_sweep as wsw
+    from rlsolver_tpu_torch.ops.kernels import sweep_kernel as sk, weighted_sweep as wsw
+    from rlsolver_tpu_torch.optim import ClippedAdam
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
     dev = resolve_device("cuda")
@@ -281,7 +336,52 @@ def main() -> int:
         if not torch.equal(env_w.obj(out), f32_vs):
             raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
         del env_w
-    del noise, noise_w, out, plain, sub
+
+    # K10 at L2A's shapes (256 sims x 8 repeats), on integer and real weights
+    B_L2A = l2a.L2AConfig().num_sims * l2a.L2AConfig().num_repeats
+    if B_L2A != B_WARM:
+        raise AssertionError("K10 is checked against K5 on the warm start's chains: L2A's count must match")
+    k10_cases = {}
+    for gk, env_k, xs_k in ((g, env32, warm), (build_f22_like(), None, None)):
+        if env_k is None:
+            env_k = MaxcutEnv(gk, dev)
+            xs_k = torch.rand(B_L2A, gk.num_nodes, generator=gen, device=dev) < 0.5
+        args = (env_k.cg.adj, cut.signs_from_bits(xs_k), env_k.gains(xs_k), env_k.obj(xs_k))
+        out_k = sk.sweep_1flip_f32(*args)
+        for part, a, b in zip(("s", "gains", "vs"), out_k, sk.sweep_1flip_f32_plain(*args)):
+            require_equal(f"K10 sweep_1flip_f32 on {gk.name}: {part}", a, b, errs, "sweep_1flip_f32")
+        k10_cases[gk.name] = (args, int((out_k[0] != args[1]).sum()))
+        print(f"  K10 on {gk.name}: {k10_cases[gk.name][1]} accepted flips in {B_L2A} chains", flush=True)
+        if gk is g:
+            require_equal("K10 vs K5 on G22like", out_k[0] > 0, sw.sweep_1flip_packed(warm, adj), errs,
+                          "sweep_1flip_f32")
+    del env_k, out_k
+
+    # K11 and K12 at the MH shapes of bench.py
+    mh_bits = bits[:MH_CHAINS].contiguous()
+    mh_words = codec.pack_bits(mh_bits)
+    nodes, u = mh.make_round_randoms(gen, MH_ROUNDS, MH_CHAINS, n)
+    acc2 = mh.make_round_accepts(nodes, u, probs)
+    k11_out = mh.mh_sample_onehot(nodes, u, probs, mh_bits)
+    require_equal("K11 mh_sample_onehot", k11_out,
+                  codec.unpack_bits(mh.mh_onehot_plain(nodes, u, probs, mh_words, n), n), errs, "mh_sample_onehot")
+    k12_out = mh.mh_sample_packed(nodes, acc2, mh_bits)
+    require_equal("K12 mh_sample_packed", k12_out,
+                  codec.unpack_bits(mh.mh_packed_plain(nodes, acc2, mh_words, n), n), errs, "mh_sample_packed")
+    grid = torch.round(probs * 65536.0) / 65536.0  # 1 - (1 - p) == p in f32 on this grid
+    require_equal("K11 vs K12 on probs of the 2^-16 grid", mh.mh_sample_onehot(nodes, u, grid, mh_bits),
+                  mh.mh_sample_packed(nodes, mh.make_round_accepts(nodes, u, grid), mh_bits), errs, "mh_sample_onehot")
+    print(f"  K11 vs K12 on the policy's own probs: {int((k11_out != k12_out).sum())} bits differ "
+          f"of {k11_out.numel()} (one f32 rounding apart; PERF.md)")
+    marg = zeros
+    for _ in range(10):
+        nd, uu = mh.make_round_randoms(gen, 2 * n, MH_CHAINS, n)
+        marg = mh.mh_sample_onehot(nd, uu, probs, marg)
+    err = float((marg.float().mean(0) - probs).abs().max())
+    print(f"  K11 marginals after {20 * n} rounds from all-zero chains: max |mean - p| = {err:.4f} (limit 0.03)")
+    if not err < 0.03:
+        raise AssertionError("K11 does not reach the policy's marginals")
+    del noise, noise_w, out, plain, sub, marg, nd, uu
     torch.cuda.synchronize()
     phase("check", t0)
 
@@ -298,6 +398,22 @@ def main() -> int:
         raise AssertionError("stream path: K2 gave another result on the same inputs")
     del stream, out, k2_out
     phase("stream", t0)
+
+    # the injected (node, u) samplers: K11 and K12 alone, on their check's inputs
+    t0 = time.time()
+    build.reset_counts()
+    out_a = mh.mh_sample_onehot(nodes, u, probs, mh_bits)
+    out_b = mh.mh_sample_packed(nodes, acc2, mh_bits)
+    torch.cuda.synchronize()
+    injected_counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"  mh_sample_onehot, mh_sample_packed: {MH_ROUNDS} rounds on {MH_CHAINS} chains; launches {injected_counts}")
+    for k in ("mh_sample_onehot", "mh_sample_packed"):
+        if injected_counts[k] <= 0:
+            raise AssertionError(f"injected path did not launch {k}")
+    if not (torch.equal(out_a, k11_out) and torch.equal(out_b, k12_out)):
+        raise AssertionError("injected path: K11/K12 gave another result on the same inputs")
+    del out_a, out_b
+    phase("injected", t0)
 
     # 4. main path: MCPG --fast at 2^20 chains ------------------------------
     t0 = time.time()
@@ -371,38 +487,89 @@ def main() -> int:
         torch.cuda.synchronize()
 
     one_round()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t_round = time.time()
-        one_round()
-        wall_ms = 1e3 * (time.time() - t_round)
-    # device-side events only (kernels, copies): the CPU ops that launched
-    # them carry the same device time again
-    dev_events = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    dev_events.sort(key=lambda e: -e[1])
-    busy_ms = sum(ms for _, ms, _ in dev_events)
-    print(f"  one --fast round at {B} chains: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
-    for key, ms, count in dev_events[:12]:
-        print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
+    profile_device(f"one --fast round at {B} chains", one_round)
     phase("profile", t0)
 
-    # 8. CLI ------------------------------------------------------------------
+    # 8. L2A on G22-like at the default widths ------------------------------
+    t0 = time.time()
+    full_cfg = l2a.L2AConfig()
+    l2a_cfg = dataclasses.replace(full_cfg, pretrain_steps=20, num_iters=2, seq_len=4, seed=0)
+    print(f"  L2AConfig widths: num_sims {l2a_cfg.num_sims}, num_repeats {l2a_cfg.num_repeats}, top_k "
+          f"{l2a_cfg.top_k}, num_searchers {l2a_cfg.num_searchers}, ls_iters {l2a_cfg.ls_iters}, embed_dim "
+          f"{l2a_cfg.embed_dim}, num_heads {l2a_cfg.num_heads}, update_times {l2a_cfg.update_times}; depth cut: "
+          f"pretrain_steps {full_cfg.pretrain_steps}->{l2a_cfg.pretrain_steps}, num_iters {full_cfg.num_iters}->"
+          f"{l2a_cfg.num_iters}, seq_len {full_cfg.seq_len}->{l2a_cfg.seq_len}")
+
+    def plain_f32_sweep_on_the_card(*args):
+        raise AssertionError("the plain f32 1-flip loop ran on the card")
+
+    plain_f32 = sk.sweep_1flip_f32_plain
+    sk.sweep_1flip_f32_plain = plain_f32_sweep_on_the_card
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+    l2a_times = {}
+    try:
+        best_x, best_v, ev = l2a.solve_maxcut_l2a(g, l2a_cfg, device=dev, timings=l2a_times)
+        torch.cuda.synchronize()
+    finally:
+        sk.sweep_1flip_f32_plain = plain_f32
+    l2a_counts = {k.name: k.launches for k in build.KERNELS}
+    host = obj_maxcut(best_x.astype("int64"), g)
+    print(f"  G22like: {l2a_cfg.num_sims} x {l2a_cfg.num_repeats} = {B_L2A} candidates per step; pretrain "
+          f"{l2a_times['pretrain'][0]:.3f} s; seconds per rollout step {l2a_times['rollout']}; seconds per PPO "
+          f"update {l2a_times['ppo']}")
+    print(f"  best cut {best_v} host re-score {host} (cuts by iteration {[r[1] for r in ev.records]})")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB launches {l2a_counts}")
+    if host != best_v:
+        raise AssertionError(f"l2a: best cut {best_v} != host re-score {host}")
+    if l2a_counts["sweep_1flip_f32"] <= 0:
+        raise AssertionError("the l2a path did not launch sweep_1flip_f32")
+    wrong = [k for k in SWEEPS if l2a_counts[k]]
+    if wrong:
+        raise AssertionError(f"l2a: packed sweeps launched without packed_sweep/fused_ls: {wrong}")
+    phase("l2a", t0)
+
+    # where an L2A rollout step and a PPO update spend their device time
+    t0 = time.time()
+    env_l = MaxcutEnv(g, dev)
+    gen_l = torch.Generator(device=dev)
+    gen_l.manual_seed(1)
+    _, seq_graph = l2a.pretrain_graph_encoder(g, dataclasses.replace(l2a_cfg, pretrain_steps=1), gen_l, dev)
+    net = PolicyTrsWithValue(l2a_cfg.embed_dim, l2a_cfg.num_heads, seed=1, device=dev)
+    steps_l = l2a._build_l2a_steps(env_l, net, seq_graph, l2a_cfg, ClippedAdam(net.parameters(), l2a_cfg.lr))
+    xs_l = env_l.random_xs(gen_l, l2a_cfg.num_sims)
+    vs_l = env_l.obj(xs_l)
+    states, rewards, logprobs = [xs_l], [], []
+    for _ in range(l2a_cfg.seq_len):
+        xs_l, vs_l, r, lp = steps_l.rollout_step(gen_l, xs_l, vs_l)
+        states.append(xs_l)
+        rewards.append(r)
+        logprobs.append(lp)
+    batch = l2a.RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs))
+    steps_l.ppo_update(gen_l, batch)
+    profile_device(f"one L2A rollout step ({B_L2A} candidates)", lambda: steps_l.rollout_step(gen_l, xs_l, vs_l))
+    profile_device(f"one PPO update ({l2a_cfg.update_times} minibatches of {l2a_cfg.num_sims}, T = "
+                   f"{l2a_cfg.seq_len})", lambda: steps_l.ppo_update(gen_l, batch))
+    del env_l, net, steps_l, batch, states, seq_graph
+    phase("l2a_profile", t0)
+
+    # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
         with open(os.path.join(data_dir, "W22like.txt"), "w") as f:  # gset format, 1-indexed
             f.write(f"{w22.num_nodes} {w22.num_edges}\n")
             f.writelines(f"{a + 1} {b + 1} {int(x)}\n" for (a, b), x in zip(w22.edges.tolist(), w22.weights))
-        proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", "--alg", "mcpg", "--fast",
-                               "--data-dir", data_dir, "--prefixes", "W22like", "--graphs", "BA_100_ID0"],
-                              capture_output=True, text=True, cwd=REPO, timeout=600)
-    print("  " + proc.stdout.strip().replace("\n", "\n  "))
-    if proc.returncode != 0 or proc.stdout.count("obj=") != 2:
-        raise AssertionError(f"CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        runs = [(["--alg", "mcpg", "--fast", "--data-dir", data_dir, "--prefixes", "W22like"], 2)]
+        runs += [(["--alg", alg] + fast, 1) for alg in ("l2a", "local_search") for fast in ([], ["--fast"])]
+        for args, count in runs:
+            proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", *args, "--graphs", "BA_100_ID0"],
+                                  capture_output=True, text=True, cwd=REPO, timeout=600)
+            print("  " + proc.stdout.strip().replace("\n", "\n  "), flush=True)
+            if proc.returncode != 0 or proc.stdout.count("obj=") != count:
+                raise AssertionError(f"CLI {args} failed ({proc.returncode}): {proc.stderr[-2000:]}")
     phase("cli", t0)
 
-    # 9. timings at each path's shapes ----------------------------------------
+    # 10. timings at each path's shapes ---------------------------------------
     t0 = time.time()
     words = codec.pack_bits(bits)
     warm_words = codec.pack_bits(warm)
@@ -485,14 +652,52 @@ def main() -> int:
                           torch.rand(W70_CHAINS, n70, generator=gen, device=dev) < 0.5, flip_chunk70,
                           c70["sweep_1flip_weighted_chunked"], 3),
     ]
+    # K10 on the G22-like check's chains: each timed launch first restores
+    # the input state (timed alone and taken off)
+    (adj22, s22, g22, v22), flips22 = k10_cases["G22like"]
+    ws, wg, wv = s22.clone(), g22.clone(), v22.clone()
+
+    def k10_restore():
+        ws.copy_(s22)
+        wg.copy_(g22)
+        wv.copy_(v22)
+
+    def k10_run():
+        k10_restore()
+        sk.SWEEP_1FLIP_F32.launch(adj22, ws, wg, wv, B_L2A, n)
+
+    mh_w = codec.pack_bits(mh_bits)
+    w_mh = codec.num_words(n)
+    rows += [
+        dict(name="sweep_1flip_f32", kernel=sk.SWEEP_1FLIP_F32, launches=l2a_counts["sweep_1flip_f32"],
+             run=k10_run, restore=k10_restore, plain=lambda: sk.sweep_1flip_f32_plain(adj22, s22, g22, v22),
+             plain_chains=B_L2A, reps=10, bytes=n * n * 4 + 2 * (2 * B_L2A * n * 4 + B_L2A * 4), step_ops=0,
+             # the f32 updates the accepted flips need, and those of every rank-1 update
+             f32=(flips22 * n * K10_F32_OPS + B_L2A * n * K10_STEP_OPS,
+                  B_L2A * n * n * K10_F32_OPS + B_L2A * n * K10_STEP_OPS),
+             l2_row_bytes=flips22 * n * 4),
+        dict(name="mh_sample_onehot", kernel=mh.MH_ONEHOT, launches=injected_counts["mh_sample_onehot"],
+             run=lambda: mh.MH_ONEHOT.launch(nodes, u, probs, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
+             plain=lambda: mh.mh_onehot_plain(nodes, u, probs, mh_w, n), plain_chains=MH_CHAINS, reps=10,
+             bytes=2 * MH_CHAINS * w_mh * 4 + MH_ROUNDS * MH_CHAINS * 8 + n * 4,
+             step_ops=MH_ROUNDS * MH_CHAINS * K11_OPS),
+        dict(name="mh_sample_packed", kernel=mh.MH_PACKED, launches=injected_counts["mh_sample_packed"],
+             run=lambda: mh.MH_PACKED.launch(nodes, acc2, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
+             plain=lambda: mh.mh_packed_plain(nodes, acc2, mh_w, n), plain_chains=MH_CHAINS, reps=10,
+             bytes=2 * MH_CHAINS * w_mh * 4 + MH_ROUNDS * MH_CHAINS * 8, step_ops=MH_ROUNDS * MH_CHAINS * K2_OPS),
+    ]
     kernels = []
     for row in rows:
         ms = cuda_ms(row["run"], row["reps"])
+        if "restore" in row:
+            ms -= cuda_ms(row["restore"], row["reps"])
         plain_ms = cuda_ms(row["plain"], 1, warmup=False)  # slow; warmed up by the checks
-        # the bound counts the popcounts the data needs; the dense bound,
-        # kept beside it, those of a scan of every table word
+        # the bound counts the popcounts (K10: the f32 updates) the data
+        # needs; the dense bound, kept beside it, those of a scan of every
+        # table word (K10: of every rank-1 update)
         popc, dense_popc, warp_reads = row.get("work", (0, 0, 0))
-        bound_ms, bound_by = bound(row["bytes"], WORD_INT_OPS * popc + row["step_ops"], popc, warp_reads)
+        f32_ops, dense_f32 = row.get("f32", (0, 0))
+        bound_ms, bound_by = bound(row["bytes"], WORD_INT_OPS * popc + row["step_ops"], popc, warp_reads, f32_ops)
         k = row["kernel"]
         kernels.append(dict(
             name=row["name"], route="cuda", source=f"rlsolver_tpu_torch/csrc/{k.source}",
@@ -503,6 +708,13 @@ def main() -> int:
             kernels[-1]["dense_bound_ms"] = bound(row["bytes"], WORD_INT_OPS * dense_popc + row["step_ops"],
                                                   dense_popc)[0]
             kernels[-1]["needed_over_dense_popcounts"] = popc / dense_popc
+        if "f32" in row:
+            kernels[-1]["dense_bound_ms"] = bound(row["bytes"], row["step_ops"], 0, 0, dense_f32)[0]
+            kernels[-1]["needed_over_dense_f32_ops"] = f32_ops / dense_f32
+            # each warp reads the rows of its chain's accepted flips from L2
+            kernels[-1]["l2_row_bytes"] = row["l2_row_bytes"]
+            print(f"  {row['name']}: adjacency rows read per launch {row['l2_row_bytes'] / 1e9:.3f} GB, "
+                  f"{row['l2_row_bytes'] / ms / 1e9:.3f} TB/s")
         if "plain_sweeps" in row:
             kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
         print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; dense bound "

@@ -1,0 +1,277 @@
+"""dREINFORCE / L2A, instance-wise (counterpart of `rlsolver_tpu/algos/l2a.py`;
+RLSolver's `L2A/demo_instance.py:25-278`).
+
+  stage 1: pretrain a graph-embedding transformer by reconstructing the
+           instance's adjacency from copies with 10% of the edges dropped,
+           and freeze its per-node features `seq_graph`;
+  stage 2: PPO-style improvement. Each rollout step maps the incumbents to
+           per-node probabilities, redraws the `top_k` least certain bits
+           into `num_repeats` candidates per incumbent (the last group
+           redraws `top_k` random bits at p = 0.5), refines every candidate
+           with the env's local search (or, with `fused_ls`, with
+           `fused_sweeps` noisy packed sweeps), and keeps the best of each
+           group where it improves the incumbent. The rewards (improvements)
+           and log-probabilities then feed `update_times` PPO minibatches:
+           GAE with gamma = 1, the clipped surrogate, an entropy term in
+           log2 and a Huber critic.
+
+On the card the local search ends in the 1-flip sweep K10 (f32 gains), or
+with `packed_sweep` (the CLI's `--fast`) in K5/K8a/K8b on integer weights;
+`fused_ls` runs K4, K6 or K7 through `FusedSweepEngine`. The transformer is
+plain tensor code, as XLA code in the JAX package.
+
+Not ported here: the distribution-wise variant (`l2a_distribution.py`),
+the data-parallel `axis_name` of `_build_l2a_steps`, and
+`solve_maxcut_l2a_runner` (it needs the training loop of `train/runner.py`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from rlsolver_tpu_torch.algos.mcpg import _kernel_seed
+from rlsolver_tpu_torch.core.graph import Graph
+from rlsolver_tpu_torch.core.result import write_graph_result
+from rlsolver_tpu_torch.device import resolve_device
+from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
+from rlsolver_tpu_torch.eval.evaluator import Evaluator
+from rlsolver_tpu_torch.models.transformer import GraphEncoder, PolicyTrsWithValue, solution_to_prob_channels
+from rlsolver_tpu_torch.ops.kernels.engine import FusedSweepEngine
+from rlsolver_tpu_torch.ops.reductions import pick_xs_by_vs, update_xs_by_vs
+from rlsolver_tpu_torch.ops.sampling import sub_set_sampling
+from rlsolver_tpu_torch.optim import ClippedAdam
+
+
+@dataclasses.dataclass
+class L2AConfig:
+    num_sims: int = 256
+    num_repeats: int = 8
+    top_k: int = 16  # uncertain bits resampled per step
+    num_searchers: int = 2  # local-search rounds per candidate batch
+    seq_len: int = 16  # rollout length per iteration
+    num_iters: int = 8
+    embed_dim: int = 64
+    num_heads: int = 4
+    pretrain_steps: int = 200
+    pretrain_lr: float = 1e-3
+    lr: float = 1e-4
+    gae_lambda: float = 0.98
+    ratio_clip: float = 0.25
+    lambda_entropy: float = 0.02
+    update_times: int = 16  # PPO minibatches per iteration
+    prob_noise: float = 0.02  # exploration noise on policy probs
+    ls_iters: int = 4
+    ls_num_spin: int = 8
+    seed: int = 0
+    packed_sweep: bool = False  # packed 1-flip kernels (K5, K8a, K8b) on integer weights
+    # fused_ls: replace the local search of the rollout step by
+    # `fused_sweeps` noisy degree-ordered packed sweeps over all candidates
+    # (K4, K6 or K7 through FusedSweepEngine)
+    fused_ls: bool = False
+    fused_sweeps: int = 8
+
+
+# ---------------------------------------------------------------- pretraining
+def pretrain_step(enc: GraphEncoder, opt: ClippedAdam, adj: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """One Adam step on the reconstruction loss of adj [N, N] from
+    adj * keep * keep^T (keep bool [N, N]). Returns the loss."""
+    recon, _ = enc((adj * keep * keep.T)[None])
+    loss = F.binary_cross_entropy_with_logits(recon[0], (adj > 0).to(torch.float32))
+    opt.zero_grad()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def pretrain_graph_encoder(graph: Graph, cfg: L2AConfig, gen: torch.Generator, device=None):
+    """Pretrains a fresh encoder for `cfg.pretrain_steps` steps (plain Adam,
+    no clipping, as the JAX package). Returns (encoder, frozen seq_graph
+    [N, D])."""
+    dev = resolve_device(device)
+    n = graph.num_nodes
+    enc = GraphEncoder(n, cfg.embed_dim, cfg.num_heads, seed=_kernel_seed(gen), device=dev)
+    adj = torch.from_numpy(graph.adjacency_dense()).to(dev)
+    opt = ClippedAdam(enc.parameters(), cfg.pretrain_lr, max_norm=None)
+    for _ in range(cfg.pretrain_steps):
+        pretrain_step(enc, opt, adj, torch.rand(n, n, generator=gen, device=dev) < 0.9)
+    with torch.no_grad():
+        seq_graph = enc.embed(adj[None])[0]
+    return enc, seq_graph
+
+
+# -------------------------------------------------------------------- trainer
+class RolloutBatch(NamedTuple):
+    states: torch.Tensor  # bool [T+1, B, N]
+    rewards: torch.Tensor  # f32 [T, B]
+    logprobs: torch.Tensor  # f32 [T, B]
+
+
+class L2ASteps(NamedTuple):
+    rollout_step: Callable
+    ppo_update: Callable
+
+
+def gae_advantages(rewards: torch.Tensor, values: torch.Tensor, lam: float) -> torch.Tensor:
+    """GAE with gamma = 1 over [T, B] (RLSolver's `get_advantages`): from the
+    last step back, adv_t = r_t + v_{t+1} - v_t + lam adv_{t+1}, with
+    v_T = adv_T = 0."""
+    adv = torch.zeros_like(rewards[0])
+    next_value = torch.zeros_like(rewards[0])
+    out = torch.empty_like(rewards)
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        adv = rewards[t] + next_value - values[t] + lam * adv
+        next_value = values[t]
+        out[t] = adv
+    return out
+
+
+def _build_l2a_steps(env: MaxcutEnv, net: PolicyTrsWithValue, seq_graph: torch.Tensor, cfg: L2AConfig,
+                     optimizer: ClippedAdam, engine: Optional[FusedSweepEngine] = None) -> L2ASteps:
+    """The two steps of the dREINFORCE loop: one policy-guided improvement
+    step and the PPO update."""
+    dev = env.device
+
+    @torch.no_grad()
+    def rollout_step(gen: torch.Generator, best_xs: torch.Tensor, best_vs: torch.Tensor):
+        """-> (new_xs, new_vs, reward [B], logprob [B])."""
+        logits, _ = net(solution_to_prob_channels(best_xs), seq_graph)
+        probs = torch.softmax(logits, dim=-1)[..., 0]
+        probs = torch.clamp(probs + torch.randn(probs.shape, generator=gen, device=dev) * cfg.prob_noise, 0.0, 1.0)
+        full_xs = sub_set_sampling(gen, probs, best_xs, cfg.num_repeats, cfg.top_k)
+        if cfg.num_repeats > 1:
+            # exploration group: the last repeat redraws k random bits at
+            # p = 0.5, so a confident but wrong policy cannot stall on its
+            # own least certain bits
+            s, n_bits = best_xs.shape
+            k_e = min(cfg.top_k, n_bits)
+            rand_ids = torch.randint(0, n_bits, (s, k_e), generator=gen, device=dev)
+            explore = best_xs.clone()
+            draws = torch.rand(s, k_e, generator=gen, device=dev) < 0.5
+            explore[torch.arange(s, device=dev)[:, None], rand_ids] = draws
+            full_xs[(cfg.num_repeats - 1) * s :] = explore
+        if engine is not None:
+            full_xs = engine.sweep(_kernel_seed(gen), full_xs, cfg.fused_sweeps)
+            full_vs = env.obj(full_xs)
+        else:
+            full_vs = env.obj(full_xs)
+            for _ in range(cfg.num_searchers):
+                full_xs, full_vs = env.local_search(gen, full_xs, full_vs, num_iters=cfg.ls_iters,
+                                                    num_spin=cfg.ls_num_spin)
+        good_xs, good_vs = pick_xs_by_vs(full_xs, full_vs, cfg.num_repeats)
+        new_xs, new_vs = update_xs_by_vs(best_xs, best_vs, good_xs, good_vs)
+        p_taken = torch.clamp(torch.where(new_xs, probs, 1 - probs), 0.005, 0.995)
+        return new_xs, new_vs, new_vs - best_vs, torch.sum(torch.log(p_taken), dim=1)
+
+    def ppo_update(gen: Optional[torch.Generator], batch: RolloutBatch,
+                   ids: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """`cfg.update_times` minibatches of num_sims transitions drawn with
+        replacement from the T * num_sims of `batch` (flat index i is step
+        i % T of sim i // T), from `gen` or as `ids` gives them. Returns the
+        losses [update_times]."""
+        states, rewards, logprobs = batch
+        seq_len, num_sims = rewards.shape
+        with torch.no_grad():
+            values = torch.stack([net(solution_to_prob_channels(x), seq_graph)[1] for x in states[:-1]])
+            advantages = gae_advantages(rewards, values, cfg.gae_lambda)
+            reward_sums = advantages + values
+            advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-5)
+        losses = []
+        for u in range(cfg.update_times):
+            idx = ids[u] if ids is not None else torch.randint(0, seq_len * num_sims, (num_sims,), generator=gen,
+                                                               device=dev)
+            t_ids, b_ids = idx % seq_len, idx // seq_len
+            logits, value = net(solution_to_prob_channels(states[t_ids, b_ids]), seq_graph)
+            logp2 = torch.log_softmax(logits, dim=-1)  # [b, N, 2]
+            new_logprob = torch.sum(torch.where(states[t_ids + 1, b_ids], logp2[..., 0], logp2[..., 1]), dim=-1)
+            p2 = torch.softmax(logits, dim=-1)
+            entropy = torch.mean(torch.sum(p2 * torch.log2(torch.clamp(p2, 1e-9, 1.0)), dim=-1), dim=-1)
+            obj_critic = F.huber_loss(value, reward_sums[t_ids, b_ids], delta=1.0)
+            ratio = torch.exp(torch.clamp(new_logprob - logprobs[t_ids, b_ids], -12.0, 12.0))
+            advantage = advantages[t_ids, b_ids]
+            surr = torch.minimum(advantage * ratio,
+                                 advantage * torch.clamp(ratio, 1 - cfg.ratio_clip, 1 + cfg.ratio_clip))
+            obj_policy = surr.mean() + entropy.mean() * cfg.lambda_entropy
+            loss = obj_critic - obj_policy  # maximise the surrogate
+            optimizer.zero_grad()
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        return torch.stack(losses)
+
+    return L2ASteps(rollout_step, ppo_update)
+
+
+def solve_maxcut_l2a(
+    graph: Graph,
+    cfg: L2AConfig = L2AConfig(),
+    instance_file: Optional[str] = None,
+    save_dir: Optional[str] = None,
+    verbose: bool = False,
+    time_budget: Optional[float] = None,
+    device=None,
+    timings: Optional[Dict[str, List[float]]] = None,
+):
+    """Instance-wise dREINFORCE. Returns (best_x np.bool_[n], best_v float,
+    evaluator). Runs on `cuda` unless `device="cpu"`. `time_budget` (seconds
+    after pretraining) stops the iteration loop early. A `timings` dict is
+    filled with the seconds of pretraining ("pretrain") and of each rollout
+    step ("rollout") and PPO update ("ppo"), the device synchronised at each
+    boundary."""
+    dev = resolve_device(device)
+
+    def tick() -> float:
+        """Host clock for `timings`, after the device's queued work."""
+        if timings is None:
+            return 0.0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.time()
+
+    def lap(key: str, t0: float) -> None:
+        if timings is not None:
+            timings.setdefault(key, []).append(tick() - t0)
+
+    env = MaxcutEnv(graph, dev, packed_sweep=cfg.packed_sweep)
+    engine = FusedSweepEngine.build(graph, dev) if cfg.fused_ls else None
+    n = graph.num_nodes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    t0 = tick()
+    _, seq_graph = pretrain_graph_encoder(graph, cfg, gen, dev)
+    lap("pretrain", t0)
+    net = PolicyTrsWithValue(cfg.embed_dim, cfg.num_heads, seed=_kernel_seed(gen), device=dev)
+    optimizer = ClippedAdam(net.parameters(), cfg.lr)
+    steps = _build_l2a_steps(env, net, seq_graph, cfg, optimizer, engine)
+
+    best_xs = env.random_xs(gen, cfg.num_sims)
+    best_vs = env.obj(best_xs)
+    evaluator = Evaluator(save_dir, n, best_xs[0].cpu().numpy(), float(best_vs[0]), True)
+    start = time.time()
+    for iter_i in range(cfg.num_iters):
+        states, rewards, logprobs = [best_xs], [], []
+        for _ in range(cfg.seq_len):
+            t0 = tick()
+            best_xs, best_vs, reward, logprob = steps.rollout_step(gen, best_xs, best_vs)
+            lap("rollout", t0)
+            states.append(best_xs)
+            rewards.append(reward)
+            logprobs.append(logprob)
+        t0 = tick()
+        losses = steps.ppo_update(gen, RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs)))
+        lap("ppo", t0)
+        evaluator.record(iter_i + 1, best_vs.cpu().numpy(), best_xs.cpu().numpy())
+        if verbose:
+            print(evaluator.log_line(iter_i + 1, f"ppo_loss {float(losses.mean()):.4f}"))
+        if time_budget is not None and time.time() - start > time_budget:
+            break
+
+    evaluator.save()
+    if instance_file is not None:
+        write_graph_result(evaluator.best_v, time.time() - start, n, "dreinforce_l2a",
+                           evaluator.best_x.astype(int), instance_file)
+    return evaluator.best_x, evaluator.best_v, evaluator

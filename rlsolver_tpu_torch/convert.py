@@ -1,18 +1,23 @@
-"""Carry the JAX package's MCPG state into the port.
+"""Carry the JAX package's MCPG and L2A state into the port.
 
 The JAX state arrives as numpy arrays (the caller converts with
 `np.asarray`; this module imports nothing of JAX):
 
   * BernoulliPolicy params `{"params": {"logits": [N]}}` become the port's
     `BernoulliPolicy` state dict `{"logits": [N]}`;
-  * the optax state of `chain(clip_by_global_norm, adam)` — nested tuples
-    holding one `ScaleByAdamState(count, mu, nu)` with mu, nu shaped like
-    the params — becomes the state of the port's `ClippedAdam`.
+  * any flax param tree, such as those of L2A's `GraphEncoder` and
+    `PolicyTrsWithValue`, becomes a state dict whose keys join the tree's
+    keys with "." (`flax_state_dict`): the port's modules keep flax's names
+    and layouts;
+  * the optax state of `chain(clip_by_global_norm, adam)` (or of a plain
+    `adam`) — nested tuples holding one `ScaleByAdamState(count, mu, nu)`
+    with mu, nu shaped like the params — becomes the state of the port's
+    `ClippedAdam`, over the module's parameters in `named_parameters` order.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +26,21 @@ import torch
 def policy_state_dict(params) -> Dict[str, torch.Tensor]:
     """`{"params": {"logits": arr}}` -> `{"logits": tensor}`."""
     return {"logits": torch.from_numpy(np.array(params["params"]["logits"], np.float32))}
+
+
+def flax_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A flax tree `{"params": {...}}` (numpy leaves) -> {"a.b.kernel": tensor}."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if hasattr(v, "items"):  # a dict or a FrozenDict
+                walk(v, prefix + k + ".")
+            else:
+                out[prefix + k] = torch.from_numpy(np.array(v, np.float32))
+
+    walk(params["params"], "")
+    return out
 
 
 def _find_adam_state(opt_state):
@@ -34,14 +54,16 @@ def _find_adam_state(opt_state):
     return None
 
 
-def adam_state(opt_state) -> Dict[str, object]:
-    """optax state of `chain(clip_by_global_norm, adam)` -> `ClippedAdam`
-    state dict `{"count": int, "mu": [tensor], "nu": [tensor]}`."""
+def adam_state(opt_state, names: Optional[Sequence[str]] = None) -> Dict[str, object]:
+    """optax Adam state -> `ClippedAdam` state dict `{"count": int, "mu":
+    [tensor], "nu": [tensor]}`, one tensor per parameter `names` lists
+    (default: MCPG's policy logits)."""
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) found in the optimizer state")
-    return {
-        "count": int(np.asarray(adam.count)),
-        "mu": [policy_state_dict(adam.mu)["logits"]],
-        "nu": [policy_state_dict(adam.nu)["logits"]],
-    }
+    if names is None:
+        mu, nu = [policy_state_dict(adam.mu)["logits"]], [policy_state_dict(adam.nu)["logits"]]
+    else:
+        fm, fn = flax_state_dict(adam.mu), flax_state_dict(adam.nu)
+        mu, nu = [fm[k] for k in names], [fn[k] for k in names]
+    return {"count": int(np.asarray(adam.count)), "mu": mu, "nu": nu}

@@ -181,6 +181,16 @@ def build_w22_like() -> Graph:
     return build_weighted_gnm(2000, 19990, 22, "W22like")
 
 
+def build_f22_like() -> Graph:
+    """Non-integer-weighted stand-in at G22's size: the G22-like topology
+    (2000 nodes, 19990 edges, seed 22) with each edge's weight uniform in
+    [0.5, 1.5), drawn in edge order by `numpy.random.default_rng(22)` and
+    rounded to f32. No packed kernel takes it: its 1-flip sweep is K10."""
+    edges = gnm_edges(2000, 19990, seed=22)
+    w = np.random.default_rng(22).uniform(0.5, 1.5, size=len(edges)).astype(np.float32)
+    return Graph.from_edge_list(2000, [(a, b, float(x)) for (a, b), x in zip(edges, w)], name="F22like")
+
+
 def build_w70_like() -> Graph:
     """Integer-weighted stand-in at G70's size: the G70-like topology of the
     JAX package's instance-wise runs (10000 nodes, 9999 edges, seed 70) with

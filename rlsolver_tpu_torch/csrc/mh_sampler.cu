@@ -2,8 +2,12 @@
 //
 // Replaces rlsolver_tpu/ops/pallas/mh_sampler.py:_mh_stream_kernel (K2,
 // randomness streamed in) and :_mh_fused_kernel (K3, randomness drawn in
-// the kernel). Per round each chain proposes flipping one node and accepts
-// with probability min(1, (1-q)/q), q = P(current value of the node), so the
+// the kernel), and the two kernels that take the randomness as (node,
+// uniform) pairs [R, B]: :_mh_kernel (K11, f32 one-hot state, the accept
+// test u * q < 1 - q made in the kernel) and :_mh_packed_kernel (K12,
+// packed state, both conditional accepts made outside as a 2-bit acc2).
+// Per round each chain proposes flipping one node and accepts with
+// probability min(1, (1-q)/q), q = P(current value of the node), so the
 // chain targets the Bernoulli(probs) product measure.
 //
 // What bounds it on an H100: the state of 10^6 chains x 2000 nodes is 264 MB
@@ -21,10 +25,23 @@
 // Mosaic cannot index lanes dynamically, and it needed a second draw per
 // round for N >= 2^15 because Mosaic has no 64-bit or high-half multiply.
 // Here the table is indexed directly, and for N >= 2^15 the node comes from
-// __umulhi of a full 32-bit draw (see mh_fused).
+// __umulhi of a full 32-bit draw (see mh_fused). K11 kept a block's chains
+// as f32 {0, 1} in VMEM and found the proposed node by a one-hot pass over
+// all N lanes; here its chains are bits in shared memory, as K12's, and the
+// node is indexed directly. K11 and K12 read 8 bytes per proposal (node and
+// u, or node and acc2), coalesced across a warp's chains. They take the
+// common tile of 128 chains: neither 32 nor 64 beat it by more than 3% at
+// 8192-131072 chains (scripts/torch_mh_tile.py).
 #include "common.cuh"
 
 namespace {
+
+// One proposal given both conditional accepts: bit c of acc2 = accept given
+// the current bit == c (K2 and K12).
+__device__ __forceinline__ void flip_by_acc2(uint32_t* my, uint32_t word, uint32_t bit, uint32_t acc2) {
+  const uint32_t cur = (my[word] >> bit) & 1u;
+  my[word] ^= ((acc2 >> cur) & 1u) << bit;
+}
 
 __device__ __forceinline__ void propose(uint32_t* my, uint32_t node, uint32_t u16,
                                         const float* __restrict__ thr, int N) {
@@ -49,8 +66,54 @@ __global__ void mh_stream_kernel(const uint32_t* __restrict__ stream, uint32_t* 
       const uint32_t s = __ldg(stream + (long long)r * B + chain);
       const uint32_t word = s >> 7, bit = (s >> 2) & 31u;
       if (word >= (uint32_t)W) continue;  // not a valid proposal: no-op
-      const uint32_t cur = (my[word] >> bit) & 1u;
-      my[word] ^= ((s >> cur) & 1u) << bit;
+      flip_by_acc2(my, word, bit, s);
+    }
+  }
+  rl::store_chains(sm, words, b0, nb, W);
+}
+
+// K11: nodes [R, B] int32, u [R, B] f32, probs [N] f32. A node outside
+// [0, N) is a no-op, as in the one-hot TPU kernel.
+__global__ void mh_onehot_kernel(const int32_t* __restrict__ nodes, const float* __restrict__ u,
+                                 const float* __restrict__ probs, uint32_t* __restrict__ words,
+                                 int B, int W, int N, int R) {
+  extern __shared__ uint32_t sm[];
+  const long long b0 = (long long)blockIdx.x * blockDim.x;
+  const int nb = min((long long)blockDim.x, B - b0);
+  rl::load_chains(sm, words, b0, nb, W);
+  if (threadIdx.x < nb) {
+    uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
+    const long long chain = b0 + threadIdx.x;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      const uint32_t node = static_cast<uint32_t>(__ldg(nodes + (long long)r * B + chain));
+      const float uu = __ldg(u + (long long)r * B + chain);
+      if (node >= (uint32_t)N) continue;
+      const uint32_t word = node >> 5, bit = node & 31u;
+      const float p = __ldg(probs + node);
+      // q = P(current value); accept when u q < 1 - q, rounded as in f32
+      const float q = (my[word] >> bit) & 1u ? p : __fsub_rn(1.0f, p);
+      if (__fmul_rn(uu, q) < __fsub_rn(1.0f, q)) my[word] ^= 1u << bit;
+    }
+  }
+  rl::store_chains(sm, words, b0, nb, W);
+}
+
+// K12: nodes [R, B] int32, acc2 [R, B] int32 (bit c = accept given bit c).
+__global__ void mh_packed_kernel(const int32_t* __restrict__ nodes, const int32_t* __restrict__ acc2,
+                                 uint32_t* __restrict__ words, int B, int W, int N, int R) {
+  extern __shared__ uint32_t sm[];
+  const long long b0 = (long long)blockIdx.x * blockDim.x;
+  const int nb = min((long long)blockDim.x, B - b0);
+  rl::load_chains(sm, words, b0, nb, W);
+  if (threadIdx.x < nb) {
+    uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
+    const long long chain = b0 + threadIdx.x;
+#pragma unroll 4
+    for (int r = 0; r < R; ++r) {
+      const uint32_t node = static_cast<uint32_t>(__ldg(nodes + (long long)r * B + chain));
+      const uint32_t a = static_cast<uint32_t>(__ldg(acc2 + (long long)r * B + chain));
+      if (node < (uint32_t)N) flip_by_acc2(my, node >> 5, node & 31u, a);
     }
   }
   rl::store_chains(sm, words, b0, nb, W);
@@ -116,5 +179,29 @@ extern "C" int mh_fused(const float* thr, int32_t* words, int B, int W, int N, i
   if (B > 0)
     kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(
         thr, reinterpret_cast<uint32_t*>(words), B, W, N, R, seed);
+  return cudaGetLastError();
+}
+
+extern "C" int mh_onehot(const int32_t* nodes, const float* u, const float* probs, int32_t* words, int B, int W,
+                         int N, int R, cudaStream_t st) {
+  int threads;
+  size_t smem;
+  cudaError_t e = rl::prepare(mh_onehot_kernel, W, &threads, &smem);
+  if (e != cudaSuccess) return e;
+  if (B > 0)
+    mh_onehot_kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(
+        nodes, u, probs, reinterpret_cast<uint32_t*>(words), B, W, N, R);
+  return cudaGetLastError();
+}
+
+extern "C" int mh_packed(const int32_t* nodes, const int32_t* acc2, int32_t* words, int B, int W, int N, int R,
+                         cudaStream_t st) {
+  int threads;
+  size_t smem;
+  cudaError_t e = rl::prepare(mh_packed_kernel, W, &threads, &smem);
+  if (e != cudaSuccess) return e;
+  if (B > 0)
+    mh_packed_kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(
+        nodes, acc2, reinterpret_cast<uint32_t*>(words), B, W, N, R);
   return cudaGetLastError();
 }

@@ -9,10 +9,11 @@ top-k multi-flips with elitist accepts, then a greedy 1-flip sweep.
 `sweep_1flip` runs a packed kernel when the env is built with
 `packed_sweep=True`: K5 on {0, +-1}-weight graphs, the bit-plane kernel K8a
 (or K8b, node-chunked, for tables beyond the card's L2) on other integer
-weights, as `engine.FlipSweepEngine` picks. On weights that are not integers
-(or |w| >= 2^15) no packed path is set and the env keeps the f32 sweep with
-rank-1 gain updates, as the JAX package does. The packed and f32 sweeps are
-bit-identical on integer weights.
+weights, as `engine.FlipSweepEngine` picks. Otherwise (no `packed_sweep`,
+or weights that are not integers or |w| >= 2^15) it runs the f32 sweep with
+rank-1 gain updates, as the JAX package does: on the card the kernel K10
+(`ops/kernels/sweep_kernel.py`), on the CPU its plain loop. The packed and
+f32 sweeps are bit-identical on integer weights.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops import cut as cut_ops
 from rlsolver_tpu_torch.ops.kernels.engine import FlipSweepEngine
+from rlsolver_tpu_torch.ops.kernels.sweep_kernel import sweep_1flip_f32
 from rlsolver_tpu_torch.ops.reductions import update_xs_by_vs
 
 
@@ -93,15 +95,5 @@ class MaxcutEnv:
             return out, self.obj(out)
         if self.cg.adj is None:
             raise NotImplementedError("sweep_1flip needs the dense adjacency")
-        s = cut_ops.signs_from_bits(xs)
-        gains = self.gains(xs)
-        vs = vs.clone()
-        for i in range(self.num_nodes):
-            g_i = gains[:, i].clone()
-            accept = g_i > 0.0
-            s_i = s[:, i].clone()
-            gains += -2.0 * (s_i * accept)[:, None] * s * self.cg.adj[i][None, :]
-            gains[:, i] = torch.where(accept, -g_i, g_i)
-            s[:, i] = torch.where(accept, -s_i, s_i)
-            vs += torch.where(accept, g_i, 0.0)
+        s, _, vs = sweep_1flip_f32(self.cg.adj, cut_ops.signs_from_bits(xs), self.gains(xs), vs)
         return s > 0.0, vs

@@ -16,9 +16,20 @@ a u16 uniform from the low 16 bits, accepted when u16 < threshold[cur].
     N >= 2^15 a round takes two draws: node = umulhi(draw0, N), u16 = low
     16 bits of draw1 (the narrow rule's 16-bit node resolution would leave
     nodes unreachable there).
+  * `mh_sample_onehot` (K11) and `mh_sample_packed` (K12): the randomness is
+    injected as a node int32 [R, B] and a uniform f32 [R, B] per proposal
+    (`make_round_randoms`), as the JAX package's `mh_sample_pallas` and
+    `mh_sample_packed` draw it. K11 accepts when u * q < 1 - q in f32, as
+    the JAX twin `mh_reference` does; K12 takes both conditional accepts
+    precomputed by `make_round_accepts` (accept | bit 1: u p < 1 - p;
+    accept | bit 0: u (1 - p) < p). The two agree wherever 1 - (1 - p) == p
+    in f32 (any p on the 2^-24 grid); off it, K11's bound for a 0 bit is
+    one rounding away from K12's, and a proposal can land between them.
+    Both are bit-exact with their JAX kernels fed the same draws.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mh_sampler.cu`);
-on a CPU tensor it runs the plain PyTorch version.
+on a CPU tensor it runs the plain PyTorch version. None of K2, K11 and K12
+is on a solver path, in this package or the JAX one.
 """
 
 from __future__ import annotations
@@ -38,6 +49,14 @@ MH_STREAM = register(Kernel(
 MH_FUSED = register(Kernel(
     "mh_sample_fused", "mh_sampler.cu", "mh_fused", "ppiiiiu",
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:403 _mh_fused_kernel",
+))
+MH_ONEHOT = register(Kernel(
+    "mh_sample_onehot", "mh_sampler.cu", "mh_onehot", "ppppiiii",
+    replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:72 _mh_kernel",
+))
+MH_PACKED = register(Kernel(
+    "mh_sample_packed", "mh_sampler.cu", "mh_packed", "pppiiii",
+    replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:201 _mh_packed_kernel",
 ))
 
 WIDE_NODES = 1 << 15
@@ -146,4 +165,80 @@ def mh_sample_fused(seed: int, probs: torch.Tensor, bits: torch.Tensor, num_roun
         MH_FUSED.launch(thr, words, b, num_words(n), n, num_rounds, seed & MASK32)
     else:
         words = mh_fused_plain(seed, thr, words, n, num_rounds)
+    return unpack_bits(words, n)
+
+
+def make_round_randoms(gen: torch.Generator, num_rounds: int, num_chains: int,
+                       num_nodes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nodes int32 [R, B] uniform in [0, N), uniforms f32 [R, B] in [0, 1))
+    for R proposal rounds, drawn from `gen` on its device."""
+    nodes = torch.randint(0, num_nodes, (num_rounds, num_chains), generator=gen, device=gen.device,
+                          dtype=torch.int32)
+    u = torch.rand(num_rounds, num_chains, generator=gen, device=gen.device)
+    return nodes, u
+
+
+def make_round_accepts(nodes: torch.Tensor, u: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """K12's acc2 int32 [R, B]: bit c = accept given the current bit == c,
+    the same f32 expressions as the JAX package's `mh_sample_packed`."""
+    p = probs.to(torch.float32)[nodes.long()]
+    a1 = (u * p < 1.0 - p).to(torch.int32)  # q = p
+    a0 = (u * (1.0 - p) < p).to(torch.int32)  # q = 1 - p
+    return a0 | (a1 << 1)
+
+
+def _injected_rounds(nodes: torch.Tensor, words: torch.Tensor, n: int, accept):
+    """The round loop of the K11/K12 plain versions on int32 words [B, W]:
+    accept(r, node, cur) gives round r's 0/1 decisions. A node outside
+    [0, N) is a no-op."""
+    w = words.long() & MASK32
+    for r, node in enumerate(nodes.long()):
+        valid = ((node >= 0) & (node < n)).long()
+        node = node * valid
+        _flip_words(w, node >> 5, node & 31, lambda cur: accept(r, node, cur) & valid)
+    return _to_int32(w)
+
+
+def mh_onehot_plain(nodes, u, probs, words, n):
+    """Plain version of the K11 kernel: words int32 [B, W] -> new words."""
+    p_all = probs.to(torch.float32)
+
+    def accept(r, node, cur):
+        p = p_all[node]
+        q = torch.where(cur > 0, p, 1.0 - p)
+        return (u[r] * q < 1.0 - q).long()
+
+    return _injected_rounds(nodes, words, n, accept)
+
+
+def mh_packed_plain(nodes, acc2, words, n):
+    """Plain version of the K12 kernel: words int32 [B, W] -> new words."""
+    return _injected_rounds(nodes, words, n, lambda r, node, cur: (acc2[r].long() >> cur) & 1)
+
+
+def _check_rounds(nodes, other, name, dtype, b):
+    check_cuda_tensor(nodes, "nodes", torch.int32, (nodes.shape[0], b))
+    check_cuda_tensor(other, name, dtype, tuple(nodes.shape))
+
+
+def mh_sample_onehot(nodes: torch.Tensor, u: torch.Tensor, probs: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """K11: the R rounds of (nodes, u) [R, B] on chains bits bool [B, N]."""
+    b, n = bits.shape
+    words = pack_bits(bits)
+    if not words.is_cuda:
+        return unpack_bits(mh_onehot_plain(nodes, u, probs, words, n), n)
+    _check_rounds(nodes, u, "u", torch.float32, b)
+    check_cuda_tensor(probs, "probs", torch.float32, (n,))
+    MH_ONEHOT.launch(nodes, u, probs, words, b, num_words(n), n, nodes.shape[0])
+    return unpack_bits(words, n)
+
+
+def mh_sample_packed(nodes: torch.Tensor, acc2: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """K12: the R rounds of (nodes, acc2) [R, B] on chains bits bool [B, N]."""
+    b, n = bits.shape
+    words = pack_bits(bits)
+    if not words.is_cuda:
+        return unpack_bits(mh_packed_plain(nodes, acc2, words, n), n)
+    _check_rounds(nodes, acc2, "acc2", torch.int32, b)
+    MH_PACKED.launch(nodes, acc2, words, b, num_words(n), n, nodes.shape[0])
     return unpack_bits(words, n)

@@ -3,12 +3,14 @@
 
   * update_xs_by_vs: per-sim replace-if-strictly-better;
   * pick_xs_by_vs: best of `num_repeats`, with repeat r of sim b at row
-    r * num_sims + b. Ties go to the first repeat, as `jnp.argmax` does.
+    r * num_sims + b. Ties go to the first repeat, as `jnp.argmax` does;
+  * evolutionary_replacement: the worst sims take copies of random good ones
+    (`rlsolver/methods/util.py:87-94` in RLSolver).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,3 +36,27 @@ def pick_xs_by_vs(
     best_r = torch.argmax(vs_r, dim=0) if maximize else torch.argmin(vs_r, dim=0)
     rows = best_r * num_sims + torch.arange(num_sims, device=xs.device)
     return xs[rows], vs[rows]
+
+
+def evolutionary_replacement(
+    gen: Optional[torch.Generator],
+    xs: torch.Tensor,
+    vs: torch.Tensor,
+    low_k: int,
+    maximize: bool = True,
+    donors: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replace the `low_k` worst sims with copies of sims drawn uniformly
+    from the others. The order is a stable sort, best first, as
+    `jnp.argsort`; `donors` (ranks in [0, num_sims - low_k)) may be given in
+    place of the draw from `gen`."""
+    num_sims = vs.shape[0]
+    order = torch.argsort(-vs if maximize else vs, stable=True)
+    worst = order[num_sims - low_k :]
+    if donors is None:
+        donors = torch.randint(0, num_sims - low_k, (low_k,), generator=gen, device=vs.device)
+    donor_rows = order[donors]
+    xs, vs = xs.clone(), vs.clone()
+    xs[worst] = xs[donor_rows]
+    vs[worst] = vs[donor_rows]
+    return xs, vs

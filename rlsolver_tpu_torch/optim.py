@@ -1,5 +1,6 @@
 """The JAX package's optimizer, `optax.chain(optax.clip_by_global_norm(1.0),
-optax.adam(lr))`, written out so that it follows optax step for step.
+optax.adam(lr))`, written out so that it follows optax step for step; with
+`max_norm=None` it is a plain `optax.adam(lr)` (L2A's pretraining).
 
 Two places where the torch built-ins differ from optax:
   * optax scales the gradients by max_norm / norm only when norm >= max_norm;
@@ -11,15 +12,17 @@ Two places where the torch built-ins differ from optax:
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 
 class ClippedAdam:
-    """Global-norm clipping, then Adam, on a list of parameters (their .grad)."""
+    """Global-norm clipping (none when `max_norm` is None), then Adam, on a
+    list of parameters (their .grad; a parameter without one counts as a
+    zero gradient, as in JAX)."""
 
-    def __init__(self, params, lr: float, max_norm: float = 1.0,
+    def __init__(self, params, lr: float, max_norm: Optional[float] = 1.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params: List[torch.nn.Parameter] = list(params)
         self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
@@ -33,10 +36,11 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = [p.grad for p in self.params]
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        if not bool(g_norm < self.max_norm):
-            grads = [(g / g_norm) * self.max_norm for g in grads]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.max_norm is not None:
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if not bool(g_norm < self.max_norm):
+                grads = [(g / g_norm) * self.max_norm for g in grads]
         self.count += 1
         count = torch.tensor(self.count, dtype=torch.float32)
         c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count

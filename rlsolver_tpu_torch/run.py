@@ -1,9 +1,14 @@
-"""The port's CLI (counterpart of `rlsolver_tpu/run.py`), so far for MCPG
-maxcut only:
+"""The port's CLI (counterpart of `rlsolver_tpu/run.py`), so far for maxcut
+by MCPG, L2A (dREINFORCE) and parallel local search:
 
     python -m rlsolver_tpu_torch --alg mcpg --fast --graphs BA_100_ID0
     python -m rlsolver_tpu_torch --alg mcpg --data-dir data/gset --prefixes gset_14
-    python -m rlsolver_tpu_torch --alg mcpg --graphs BA_100_ID0 --device cpu
+    python -m rlsolver_tpu_torch --alg l2a --graphs BA_100_ID0
+    python -m rlsolver_tpu_torch --alg local_search --fast --graphs BA_100_ID0 --device cpu
+
+`--fast` takes the packed CUDA kernels where the graph's weights are
+integers: MCPG's fused sampler and packed sweeps; for L2A and local search
+the packed 1-flip sweep (`packed_sweep=True`), as in the JAX package.
 
 Runs on the card unless `--device cpu`. Every returned solution is
 re-scored with the host objective, and a mismatch raises. `--write` writes
@@ -24,8 +29,6 @@ from rlsolver_tpu_torch.core.io import list_graph_files, read_graph
 from rlsolver_tpu_torch.core.result import write_graph_result
 from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
-PORTED_ALGS = ("mcpg",)
-
 
 def _mcpg(graph: Graph, seed: int, fast: bool, device):
     from rlsolver_tpu_torch.algos.mcpg import MCPGConfig, solve_maxcut_mcpg
@@ -37,11 +40,30 @@ def _mcpg(graph: Graph, seed: int, fast: bool, device):
     return best_x, best_v
 
 
+def _local_search(graph: Graph, seed: int, fast: bool, device):
+    from rlsolver_tpu_torch.algos.local_search_solver import LocalSearchConfig, solve_maxcut_local_search
+
+    best_x, best_v, _ = solve_maxcut_local_search(graph, LocalSearchConfig(seed=seed, packed_sweep=fast),
+                                                  device=device)
+    return best_x, best_v
+
+
+def _l2a(graph: Graph, seed: int, fast: bool, device):
+    from rlsolver_tpu_torch.algos import l2a
+
+    best_x, best_v, _ = l2a.solve_maxcut_l2a(graph, l2a.L2AConfig(seed=seed, packed_sweep=fast), device=device)
+    return best_x, best_v
+
+
+SOLVERS = {"mcpg": _mcpg, "local_search": _local_search, "l2a": _l2a}
+PORTED_ALGS = tuple(SOLVERS)
+
+
 def run_one(alg: str, graph: Graph, seed: int, write: bool, instance_path: str,
             fast: bool = False, device=None):
     """Solve one instance, re-score it on the host, optionally write it."""
     t0 = time.time()
-    bits, value = _mcpg(graph, seed, fast, device)
+    bits, value = SOLVERS[alg](graph, seed, fast, device)
     duration = time.time() - t0
     bits = np.asarray(bits).astype(np.int64)
     check = obj_maxcut(bits, graph)
@@ -67,7 +89,7 @@ def main(argv=None) -> int:
     p.add_argument("--write", action="store_true", help="write result files")
     p.add_argument("--fast", action="store_true",
                    help="packed CUDA kernel paths (integer-weight graphs, |w| < 2^15): "
-                   "MCPG sampler='fused' + sweep_mode='packed'")
+                   "MCPG sampler='fused' + sweep_mode='packed'; l2a and local_search packed_sweep")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.alg not in PORTED_ALGS:
