@@ -12,8 +12,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                sweep), K6/K8a on W22-like and K7/K8b on W70-like (the plain
                sweep on 2048 chains and 2 sweeps, the 1-flip sweeps on the
                warm starts' 2048 and 768 chains, also against the f32 sweep);
-               fused K6 equals fused K7 (forced chunk) and, on G22-like with
-               random +-1 signs, fused K4; the fused sampler's marginals are
+               fused K6 equals fused K7 (a small forced stage on W22-like,
+               the engine's on W70-like's 24,576 chains) and, on G22-like
+               with random +-1 signs, fused K4; on a hub graph with isolated
+               nodes, whose hub's list spans several of K7's stages, K6 and
+               K7 equal the plain sweep and each other; the fused sampler's
+               marginals are
                checked against the policy; K10, the f32 1-flip sweep, on
                L2A's 2048 chains of G22-like (also against K5) and of
                F22-like (the same topology, weights uniform in [0.5, 1.5));
@@ -37,8 +41,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                weights) with the gset_70 preset cut to 768 x 32 chains and 2
                rounds: the engine must pick K7 and K8b, and K3, K7, K8b must
                launch;
-  7. profile — device time by kernel of one --fast round on G22-like
-               (torch.profiler);
+  7. profile — device time by kernel of one --fast round on G22-like,
+               W22-like and W70-like (torch.profiler);
   8. l2a     — `solve_maxcut_l2a` on G22-like at the default widths of
                L2AConfig (256 sims x 8 repeats, top_k 16, 2 searchers, 4
                multi-flip iterations, embed 64, 4 heads, 2 encoder layers,
@@ -48,11 +52,16 @@ Phases (each prints its seconds; any failure exits non-zero):
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
- 10. time    — kernel, plain-version and bound times at each path's shapes;
-               a sweep's bound counts the popcounts its table's non-zero
-               words need (K10: the f32 updates its accepted flips need),
-               with `dense_bound_ms` (every word; K10: every rank-1 update)
-               beside it.
+ 10. time    — kernel, plain-version and bound times at each path's shapes
+               (K7's with its transposes); a bit-plane sweep's bound counts
+               the popcounts its tables' non-zero words need and, per warp
+               and step, reads of those words and of the distinct chain
+               words they meet; K6's and K7's bound is the least of that
+               and the neighbour-list reckoning (a bit extract and a
+               multiply-add per neighbour, reads of the distinct neighbour
+               words and of the list); K10's counts the f32 updates its
+               accepted flips need; `dense_bound_ms` (every word; K10: every
+               rank-1 update) beside it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -92,6 +101,8 @@ PHILOX_OPS = 100  # one Philox4x32-10 call (4 draws)
 K2_OPS = 6  # per proposal: word/bit/acc2 decode, read bit, flip
 K3_OPS = 12 + PHILOX_OPS // 4  # per proposal: node/u16, bit, threshold compare, flip + draws
 WORD_INT_OPS = 2  # AND and add per word of a popcount (and one popcount)
+NBR_INT_OPS = 2  # per neighbour of a list: bit extract, multiply-add
+LIST_READ_BYTES = 16  # a warp reads the list 16 bytes (two entries) at a time
 STEP_OPS = 10  # per sweep step: compare, bit set, loop
 W70_CHAINS, W70_REPEATS = 768, 32  # gset_70's C, with R cut from 288 to 32
 # K10, per gain of an accepted flip: one f32 result. The product
@@ -103,6 +114,23 @@ K10_F32_OPS = 1
 K10_STEP_OPS = 2  # per (chain, node): the compare and the add to the cut
 K11_OPS = 10 + 3  # per proposal: node/word/bit decode, read bit, flip; q, u*q, 1-q in f32
 MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
+FORCED_STAGE = 100  # K7's list entries per stage in the checks that force it small
+
+
+def build_hub_graph():
+    """A 3000-node graph with weights in +-{1..7}: node 0 joined to 2400
+    others (a list of many stages), 3000 random edges among nodes 1..2899,
+    and nodes 2900..2999 isolated (empty lists)."""
+    import numpy as np
+    from rlsolver_tpu_torch.core.graph import Graph
+    rng = np.random.default_rng(2026)
+    pairs = {(0, int(j)) for j in rng.choice(np.arange(1, 2900), size=2400, replace=False)}
+    while len(pairs) < 5400:
+        a, b = sorted(int(x) for x in rng.integers(1, 2900, size=2))
+        if a != b:
+            pairs.add((a, b))
+    w = rng.integers(1, 8, size=len(pairs)) * rng.choice((-1, 1), size=len(pairs))
+    return Graph.from_edge_list(3000, [(a, b, float(x)) for (a, b), x in zip(sorted(pairs), w)], name="Hub3000")
 
 
 def phase(name, t0):
@@ -146,13 +174,31 @@ def nonzero(t: torch.Tensor) -> int:
     return int(torch.count_nonzero(t))
 
 
+def plane_reads(planes: torch.Tensor) -> int:
+    """Warp-wide reads a step needs from bit-planes [P, N, W], summed over
+    the rows: each non-zero table word (a broadcast), and each distinct
+    chain word it meets, once however many planes are non-zero there."""
+    nz = planes != 0
+    return int(nz.sum()) + int(nz.any(dim=0).sum())
+
+
+def list_reads(offsets: torch.Tensor, entries: torch.Tensor) -> int:
+    """Warp-wide reads a sweep needs from neighbour lists: each step's
+    distinct neighbour words, and the list 16 bytes at a time."""
+    n = offsets.numel() - 1
+    steps = torch.repeat_interleave(torch.arange(n, device=offsets.device), (offsets[1:] - offsets[:-1]).long())
+    distinct = torch.unique(steps * (n // 32 + 1) + (entries[:, 0].long() >> 5)).numel()
+    return distinct + -(-(entries.numel() * 4) // LIST_READ_BYTES)
+
+
 def scan_work(chains: int, sweeps: int, needed, dense, read):
     """Totals over `sweeps` sweeps (the first, then sweeps - 1 later ones) of
     counts per sweep given as (first, later) pairs: `needed`, the popcounts
     a chain needs, one per non-zero table word it meets (summed over the
     sweep's rows, so the graph's sparsity counts); `dense`, the popcounts of
-    a scan of every word; `read`, the table words such a scan reads, once
-    per warp of 32 chains (a broadcast). -> (needed, dense, warp reads)."""
+    a scan of every word; `read`, the warp-wide reads the needed words take
+    (`plane_reads`), once per warp of 32 chains. -> (needed, dense, warp
+    reads)."""
     def total(pair):
         return pair[0] + (sweeps - 1) * pair[1]
     return chains * total(needed), chains * total(dense), -(-chains // 32) * total(read)
@@ -307,8 +353,8 @@ def main() -> int:
     plain = codec.unpack_bits(wsw._wsweep_plain(tw22, codec.pack_bits(sub), n, 2, 0.25, None, 4242), n)
     require_equal(f"K6 fused on W22like (first {B_PLAIN_W} of {B} chains)", out[:B_PLAIN_W], plain, errs,
                   "mcpg_sweep_weighted")
-    forced = engine.pick_node_chunk(n, tw22.planes.shape[0])
-    require_equal(f"K7 fused (forced chunk {forced}) vs K6 fused on W22like",
+    forced = FORCED_STAGE
+    require_equal(f"K7 fused (forced stage of {forced} entries) vs K6 fused on W22like",
                   wsw.mcpg_sweep_weighted_fused(4242, bits, tw22, num_sweeps=2, node_chunk=forced), out, errs,
                   "mcpg_sweep_weighted_chunked")
     tw70 = wsw.WeightedSweepTables.build(w70, dev)
@@ -317,6 +363,27 @@ def main() -> int:
                   wsw.mcpg_sweep_weighted_fused(99, bits70, tw70, num_sweeps=2, node_chunk=chunk70),
                   wsw.mcpg_sweep_weighted_fused(99, bits70, tw70, num_sweeps=2), errs, "mcpg_sweep_weighted_chunked")
     del tw70, bits70
+    # a hub whose list spans several stages, nodes with empty lists
+    hub = build_hub_graph()
+    th = wsw.WeightedSweepTables.build(hub, dev)
+    degs = (th.offsets[1:] - th.offsets[:-1]).long()
+    print(f"  {hub.name}: N={hub.num_nodes}, largest list {int(degs.max())} entries, {int((degs == 0).sum())} empty "
+          f"lists, stages of {FORCED_STAGE} and {chunk70} entries")
+    sub_h = torch.rand(B_PLAIN_W, hub.num_nodes, generator=gen, device=dev) < 0.5
+    noise_h = torch.randint(0, 65536, (2 * hub.num_nodes, B_PLAIN_W), generator=gen, device=dev, dtype=torch.int32)
+    plain_h = codec.unpack_bits(wsw._wsweep_plain(th, codec.pack_bits(sub_h), hub.num_nodes, 2, 0.25, noise_h, 0),
+                                hub.num_nodes)
+    for chunk in (None, FORCED_STAGE, chunk70):
+        key = "mcpg_sweep_weighted" + ("_chunked" if chunk else "")
+        require_equal(f"{'K7' if chunk else 'K6'} on {hub.name} (injected noise, stage {chunk})",
+                      wsw.mcpg_sweep_weighted(noise_h, sub_h, th, num_sweeps=2, node_chunk=chunk), plain_h, errs, key)
+    bits_h = torch.rand(B70, hub.num_nodes, generator=gen, device=dev) < 0.5
+    k6_h = wsw.mcpg_sweep_weighted_fused(31, bits_h, th, num_sweeps=3)
+    for chunk in (FORCED_STAGE, chunk70):
+        require_equal(f"K7 fused (stage {chunk}) vs K6 fused on {hub.name}, {B70} chains, 3 sweeps",
+                      wsw.mcpg_sweep_weighted_fused(31, bits_h, th, num_sweeps=3, node_chunk=chunk), k6_h, errs,
+                      "mcpg_sweep_weighted_chunked")
+    del th, sub_h, plain_h, bits_h, k6_h, noise_h
     rng_pm = torch.Generator().manual_seed(3)
     signs = (torch.randint(0, 2, (g.num_edges,), generator=rng_pm) * 2 - 1).numpy().astype("float32")
     g_pm = Graph(g.num_nodes, g.edges, signs, "G22like_pm1")
@@ -440,7 +507,7 @@ def main() -> int:
     # 5, 6. MCPG --fast on the weighted stand-ins ------------------------------
     SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
               "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_chunked")
-    weighted_counts = {}
+    weighted_counts, weighted_cfgs = {}, {}
     for gw, cfg_w, sweep_k, flip_k in (
         (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted", "sweep_1flip_weighted"),
         (w70, dataclasses.replace(GSET_PRESETS_40G["gset_70"], repeat_times=W70_REPEATS, sampler="fused",
@@ -450,6 +517,7 @@ def main() -> int:
         t0 = time.time()
         sweep_eng, flip_eng = engine.plan_sweep(gw, l2), engine.plan_1flip(gw, l2)
         print(f"  {gw.name}: sweep plan {sweep_eng}, 1-flip plan {flip_eng}")
+        torch.cuda.reset_peak_memory_stats()
         build.reset_counts()
         best_x, best_v, ev = solve_maxcut_mcpg(gw, cfg_w, device=dev)
         torch.cuda.synchronize()
@@ -461,7 +529,7 @@ def main() -> int:
         print(f"  C={cfg_w.total_mcmc_num} R={cfg_w.repeat_times} -> {bw} chains, N={gw.num_nodes}, "
               f"num_ls={cfg_w.num_ls}; {len(times)} rounds")
         print(f"  best cut {best_v} host re-score {host} seconds/round {times} samples/s {[bw / t for t in times]}")
-        print(f"  launches {counts}")
+        print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB launches {counts}")
         if host != best_v:
             raise AssertionError(f"{gw.name}: best cut {best_v} != host re-score {host}")
         for k in ("mh_sample_fused", sweep_k, flip_k):
@@ -470,24 +538,33 @@ def main() -> int:
         wrong = [k for k in SWEEPS if k not in (sweep_k, flip_k) and counts[k]]
         if wrong:
             raise AssertionError(f"{gw.name}: the engine chose other kernels than expected: {wrong}")
+        weighted_cfgs[gw.name] = cfg_w
         phase(gw.name.lower().replace("like", ""), t0)
 
     # where one --fast round's device time goes (torch.profiler) -------------
     t0 = time.time()
-    env = MaxcutEnv(g, dev, packed_sweep=True)
-    steps = _build_steps(env, None, fast_cfg)
-    policy, optimizer = new_policy(n, fast_cfg, dev)
-    best_xs = bits[: fast_cfg.total_mcmc_num].clone()
 
-    def one_round():
-        probs_r = policy().detach()
-        mh_r, ls_r, cuts_r = steps.sample_step(gen, probs_r, bits)
-        steps.reduce_step(ls_r, cuts_r, best_xs.clone(), env.obj(best_xs))
-        steps.update_step(policy, optimizer, mh_r, cuts_r)
-        torch.cuda.synchronize()
+    def profile_round(gr, cfg_r, chains):
+        env = MaxcutEnv(gr, dev, packed_sweep=True)
+        steps = _build_steps(env, None, cfg_r)
+        policy, optimizer = new_policy(gr.num_nodes, cfg_r, dev)
+        best_xs = chains[: cfg_r.total_mcmc_num].clone()
 
-    one_round()
-    profile_device(f"one --fast round at {B} chains", one_round)
+        def one_round():
+            probs_r = policy().detach()
+            mh_r, ls_r, cuts_r = steps.sample_step(gen, probs_r, chains)
+            steps.reduce_step(ls_r, cuts_r, best_xs.clone(), env.obj(best_xs))
+            steps.update_step(policy, optimizer, mh_r, cuts_r)
+            torch.cuda.synchronize()
+
+        one_round()
+        profile_device(f"one --fast round on {gr.name} at {chains.shape[0]} chains", one_round)
+
+    profile_round(g, fast_cfg, bits)
+    profile_round(w22, weighted_cfgs["W22like"], bits)
+    cfg70 = weighted_cfgs["W70like"]
+    profile_round(w70, cfg70, torch.rand(cfg70.total_mcmc_num * cfg70.repeat_times, w70.num_nodes, generator=gen,
+                                         device=dev) < 0.5)
     phase("profile", t0)
 
     # 8. L2A on G22-like at the default widths ------------------------------
@@ -580,11 +657,12 @@ def main() -> int:
     # later sweeps m_all (and its negative plane)
     sp = 2 if tables.signed else 1
     first_w, later_w = 2 * sp * n * w, sp * n * w
-    k4_work = scan_work(B, S, (nonzero(tables.masks[: 2 * sp]), nonzero(tables.masks[2 * sp : 4 * sp])),
-                        (first_w, later_w), (first_w, later_w))
+    k4_first, k4_later = tables.masks[: 2 * sp], tables.masks[2 * sp : 4 * sp]
+    k4_work = scan_work(B, S, (nonzero(k4_first), nonzero(k4_later)), (first_w, later_w),
+                        (plane_reads(k4_first), plane_reads(k4_later)))
     k4_steps = B * n * S * (STEP_OPS + PHILOX_OPS // 4)
     k5_planes = torch.stack([adj.pos] + ([adj.neg] if adj.neg is not None else []))
-    k5_work = scan_work(B_WARM, 1, (nonzero(k5_planes), 0), (k5_planes.numel(), 0), (k5_planes.numel(), 0))
+    k5_work = scan_work(B_WARM, 1, (nonzero(k5_planes), 0), (k5_planes.numel(), 0), (plane_reads(k5_planes), 0))
     rows = [
         dict(name="mh_sample_stream", kernel=mh.MH_STREAM, launches=stream_counts["mh_sample_stream"],
              run=lambda: mh.MH_STREAM.launch(stream, words, B, w, ROUNDS),
@@ -607,30 +685,35 @@ def main() -> int:
     ]
 
     def weighted_sweep_row(name, kernel, tab, wds, chunk, launches):
-        """K6/K7 at a path's shapes (fused, S sweeps); the plain version
-        with injected noise on B_PLAIN_W chains and 2 sweeps."""
+        """K6/K7 at a path's shapes (fused, S sweeps; K7 with its transposes);
+        the plain version with injected noise on B_PLAIN_W chains and 2
+        sweeps. Two reckonings of the bound: the bit-plane one (popcounts
+        of the non-zero words) and the neighbour-list one."""
         nn, bb, ww = tab.num_nodes, wds.shape[0], wds.shape[1]
         e, m = tab.planes[0], tab.planes[1:]
-        # sweep 1 needs pc(x & m & e) and pc(x & m & ~e), later sweeps pc(x & m);
-        # the kernel scans every word, twice per plane in sweep 1, and reads e too
-        work = scan_work(bb, S, (nonzero(m & e) + nonzero(m & ~e), nonzero(m)), (2 * m.numel(), m.numel()),
-                         (tab.planes.numel(), m.numel()))
+        # sweep 1 needs pc(x & m & e) and pc(x & m & ~e), later sweeps pc(x & m)
+        first = torch.cat([m & e, m & ~e])
+        work = scan_work(bb, S, (nonzero(first), nonzero(m)), (2 * m.numel(), m.numel()),
+                         (plane_reads(first), plane_reads(m)))
+        steps = bb * nn * S * (STEP_OPS + PHILOX_OPS // 4)
+        entries = tab.entries.shape[0]
+        list_bytes = tab.entries.numel() * 4 + tab.offsets.numel() * 4
+        list_work = (2 * bb * ww * 4 + list_bytes + 3 * nn * 4, NBR_INT_OPS * bb * S * entries + steps,
+                     -(-bb // 32) * S * list_reads(tab.offsets, tab.entries))
         t1, t2 = sw._noisy_thresholds(tab, 0.25)
         nz = torch.randint(0, 65536, (2 * nn, B_PLAIN_W), generator=gen, device=dev, dtype=torch.int32)
-        extra = [chunk] if chunk else []
         return dict(name=name, kernel=kernel, launches=launches,
-                    run=lambda: kernel.launch(tab.nodes, t1, t2, tab.planes, tab.k, int(tab.signed), None, 1, 777,
-                                              0.25 / 65536.0, wds, bb, ww, nn, S, *extra),
+                    run=lambda: wsw.launch_sweep(tab, wds, t1, t2, None, 777, 0.25, S, chunk),
                     plain=lambda: wsw._wsweep_plain(tab, wds[:B_PLAIN_W], nn, 2, 0.25, nz, 0),
-                    plain_chains=B_PLAIN_W, plain_sweeps=2, reps=1,
-                    bytes=2 * bb * ww * 4 + tab.planes.numel() * 4 + 3 * nn * 4, work=work,
-                    step_ops=bb * nn * S * (STEP_OPS + PHILOX_OPS // 4))
+                    plain_chains=B_PLAIN_W, plain_sweeps=2, reps=1 if chunk is None else 5,
+                    bytes=2 * bb * ww * 4 + tab.planes.numel() * 4 + 3 * nn * 4, work=work, list_work=list_work,
+                    step_ops=steps)
 
     def weighted_flip_row(name, kernel, aw, bits_w, chunk, launches, reps):
         nn, bb = aw.num_nodes, bits_w.shape[0]
         ww = codec.num_words(nn)
         wds = codec.pack_bits(bits_w)
-        work = scan_work(bb, 1, (nonzero(aw.planes), 0), (aw.planes.numel(), 0), (aw.planes.numel(), 0))
+        work = scan_work(bb, 1, (nonzero(aw.planes), 0), (aw.planes.numel(), 0), (plane_reads(aw.planes), 0))
         extra = [chunk] if chunk else []
         return dict(name=name, kernel=kernel, launches=launches,
                     run=lambda: kernel.launch(aw.planes, aw.wdeg, aw.k, int(aw.signed), wds, bb, ww, nn, *extra),
@@ -708,6 +791,15 @@ def main() -> int:
             kernels[-1]["dense_bound_ms"] = bound(row["bytes"], WORD_INT_OPS * dense_popc + row["step_ops"],
                                                   dense_popc)[0]
             kernels[-1]["needed_over_dense_popcounts"] = popc / dense_popc
+        if "list_work" in row:
+            list_ms, list_by = bound(row["list_work"][0], row["list_work"][1], 0, row["list_work"][2])
+            kernels[-1].update(bitplane_bound_ms=bound_ms, bitplane_bound_by=bound_by, list_bound_ms=list_ms,
+                               list_bound_by=list_by)
+            print(f"  {row['name']}: bit-plane reckoning {bound_ms:.3f} ms ({bound_by}), neighbour-list "
+                  f"reckoning {list_ms:.3f} ms ({list_by})")
+            if list_ms < bound_ms:
+                kernels[-1].update(bound_ms=list_ms, bound_by=list_by)
+                bound_ms, bound_by = list_ms, list_by
         if "f32" in row:
             kernels[-1]["dense_bound_ms"] = bound(row["bytes"], row["step_ops"], 0, 0, dense_f32)[0]
             kernels[-1]["needed_over_dense_f32_ops"] = f32_ops / dense_f32

@@ -1,6 +1,5 @@
-// Integer-weight sweeps on signed bit-planes: MCPG's noisy degree-ordered
-// sweep and the greedy 1-flip sweep, each with its table rows read in place
-// or staged in shared memory a node chunk at a time.
+// Integer-weight sweeps: MCPG's noisy degree-ordered sweep on each step's
+// neighbour list, and the greedy 1-flip sweep on signed bit-planes.
 //
 // Replaces rlsolver_tpu/ops/pallas/weighted_sweep.py:
 //   _wsweep_kernel (K6)                 -> wsweep_kernel
@@ -8,46 +7,59 @@
 //   _wsweep_1flip_kernel (K8a)          -> wsweep_1flip_kernel
 //   _wsweep_1flip_chunked_kernel (K8b)  -> wsweep_1flip_chunked_kernel
 //
-// Weights |w| < 2^15 split into K <= 15 binary planes, positive and, on a
-// graph with negative weights, negative. Per step k of sweep s (node
-// nodes[k], descending degree), with e the `earlier` row (nodes before k):
-//   first sweep: nbr = sum_b 2^b [(2 pc(x & pos_b) - pc(x & e & pos_b)) - (the same for neg_b)]
-//   later:       nbr = sum_b 2^b [pc(x & pos_b) - pc(x & neg_b)]
-// and x_i = (nbr + u16 * scale < thr[k]). As in K4 the compare uses
-// __fadd_rn/__fmul_rn (the library builds with -fmad=false), so it rounds
-// like the f32 multiply-then-add of the plain version and of JAX, and the
-// noise is K4's: injected [S*N, B], or draw t = s*N + k of each chain from
-// Philox under (seed, kTagSweep). So on a {0, +-1} graph these sweeps give
-// K4's bits. The 1-flip sweep visits nodes in ascending order with
-// P = sum_b 2^b (pc(x & pos_b) - pc(x & neg_b)), cut = x_i ? wdeg_i - P : P,
-// and flips when wdeg_i - 2 cut > 0 (wdeg computed once with the planes, as
-// K5's degrees are).
+// The sweep (K6, K7). Step k of sweep s sets node nodes[k] (descending
+// degree) of each chain to (nbr + u16 * scale < thr[k]), with
+//   nbr = sum over the step's list of c * x_j,
+// one list entry {j, (w << 1) | earlier} per neighbour j of weight w:
+// c = w in later sweeps, and in the first sweep c = w if j precedes step k
+// and 2w if not (the mixed domain: processed neighbours count with their
+// bit, unprocessed ones with 2x - 0.5). That is the integer the TPU kernel
+// popcounts from its bit-planes, sum_b 2^b (2 pc(x & m_b) - pc(x & e & m_b))
+// over signed planes m_b and the `earlier` row e, so the bits are the same.
+// As in K4 the compare uses __fadd_rn/__fmul_rn (the library builds with
+// -fmad=false), so it rounds like the f32 multiply-then-add of the plain
+// version and of JAX, and the noise is K4's: injected [S*N, B], or draw
+// t = s*N + k of each chain from Philox under (seed, kTagSweep). On a
+// {0, +-1} graph these sweeps give K4's bits.
 //
-// What bounds them on an H100, as built: popcounts. Every step ANDs and
-// popcounts each word of each chain against the node's rows: 4K popcounts
-// per word in the first sweep of a signed graph, 2K later (K = 3: 12 and 6,
-// twice and six times K4's), at 16 per clock per SM, a quarter of the
-// integer rate. The function needs a popcount only where a row word is
-// non-zero: 8.7% of a plane's words on W22-like, 0.18% on W70-like (about
-// two neighbours per row), and chip_smoke.py's bound counts that, with each
-// warp reading every row word once. So on sparse graphs these kernels do
-// mostly work on zero words; skipping them is the lever, not the popcount
-// rate. As in
-// K4, one thread runs one chain, a block keeps its chains in shared memory
-// (odd word stride) for the whole call, device memory sees the chains once,
-// and the rows, the same for every chain, are read as warp broadcasts.
-//   K6 and K8a read the rows in place through L1/L2 (__ldg): for tables that
-//   stay in L2 (the rule is in ops/kernels/engine.py).
-//   K7 and K8b are for tables beyond L2, where an in-place read would wait
-//   on device memory at every step with few warps to cover it. The block
-//   copies `chunk` rows of every plane into shared memory with cp.async, two
-//   stages deep, so the next chunk arrives while this one is swept. Shared
-//   memory is split between the chain tile and the stages: chains_per_block
-//   fits the largest tile of 128, 64 or 32 chains beside 2 x P x chunk x W
-//   words. At N = 10000 (W = 313) with P = 7 planes and chunk = 4 that is 128
-//   chains (160 KB) and 70 KB of stages: one block, four warps, per SM.
+// What bounds them on an H100. The data needs one bit extract and one
+// multiply-add per neighbour met (about 20 a step on W22-like, 2 on
+// W70-like) and a step's own work (its Philox draw, compare and bit set).
+// The bit-plane design of the TPU ANDed and popcounted every table word of
+// every plane at every step, 11 times the work W22-like needs and 550
+// times W70-like's; walking the list instead does no work on zero words.
+//   K6 (wsweep_kernel): one thread per chain, the block's 128-chain tile in
+//   shared memory at an odd word stride (32 KB at W = 63, so 7 blocks share
+//   an SM), the list read with warp-uniform __ldg loads (two entries per
+//   16-byte load), then one shared-memory read of the neighbour's word:
+//   7 instructions a neighbour. Its time is instruction issue and the
+//   latency of those loads, with at most 28 warps per SM (252 bytes of
+//   shared memory a chain at W22-like's size).
+//   K7 (wsweep_chunked_kernel): for graphs whose tile would leave few
+//   blocks per SM (W70-like: one of 4 warps, 160 KB at W = 313), the chains
+//   stay in device memory, chain-minor [W, B], so that word j of 32
+//   neighbouring chains is 128 contiguous bytes: each neighbour read and
+//   each bit set is one coalesced access, the 30.8 MB of W70-like's 24,576
+//   chains stay in the 50 MB L2, and all warps are resident in one wave. The
+//   lists are staged into shared memory with cp.async, `stage` entries at a
+//   time, two stages deep, and every warp of the block reads them; a list
+//   may span several stages. Per step, the node's own word and its
+//   neighbours' words are loaded together and the Philox draw is made while
+//   they are in flight. Its time is the latency of each chain's 80,000
+//   dependent steps (W70-like, 8 sweeps), with 6 warps per SM to hide it.
 // The TPU's chunked kernel reseeded its PRNG per grid cell; here a draw is
-// keyed by (seed, chain, t) whatever the chunk, so K7 gives K6's bits.
+// keyed by (seed, chain, t) whatever the kernel, so K7 gives K6's bits.
+//
+// The 1-flip sweep (K8a, K8b), on the bit-planes of WeightedAdjPlanes:
+// weights |w| < 2^15 split into K <= 15 binary planes, positive and, on a
+// graph with negative weights, negative. Nodes are visited in ascending
+// order with P = sum_b 2^b (pc(x & pos_b) - pc(x & neg_b)),
+// cut = x_i ? wdeg_i - P : P, and a flip when wdeg_i - 2 cut > 0 (wdeg
+// computed once with the planes, as K5's degrees are). One thread runs one
+// chain with the block's chains in shared memory; K8a reads the rows in
+// place through L1/L2 (__ldg), K8b copies `chunk` rows of every plane into
+// shared memory with cp.async, two stages deep. They popcount every word of
+// every plane, most of them zero on sparse graphs (ROADMAP Queue 2).
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -55,6 +67,215 @@
 namespace {
 
 constexpr int kMaxPlanes = 15;
+
+// ---------------------------------------------------------------------------
+// K6 and K7: the noisy sweep on neighbour lists
+
+struct ListSweepArgs {
+  const int32_t* nodes;    // [N] node of each step
+  const float* thr1;       // [N] first-sweep thresholds, noise_scale / 2 included
+  const float* thr2;       // [N] later-sweep thresholds
+  const int32_t* offsets;  // [N + 1] start of each step's list in `entries`
+  const int2* entries;     // [E] {j, (w << 1) | earlier}, 16-byte aligned
+  const int32_t* noise;    // [S * N, B] injected u16, or null with use_prng
+  uint32_t seed;
+  float scale;  // noise_scale / 65536
+  int use_prng;
+  uint32_t* words;  // chains, updated in place: K6 [B, W], K7 [W, B]
+  int B, W, N, S;
+};
+
+// The coefficient of an entry's neighbour: w, or in the first sweep 2w for
+// a neighbour later in the order.
+template <bool kFirst>
+__device__ __forceinline__ int coefficient(int meta) {
+  const int w = meta >> 1;
+  return kFirst ? w * (2 - (meta & 1)) : w;
+}
+
+__device__ __forceinline__ int bit_of(uint32_t word, int j) { return static_cast<int>((word >> (j & 31)) & 1u); }
+
+// K6: one chain's neighbour sum over entries [e0, e1), its words `my` in
+// shared memory.
+template <bool kFirst>
+__device__ __forceinline__ int tile_sum(const uint32_t* my, const int2* __restrict__ entries, int e0, int e1) {
+  int nbr = 0, e = e0;
+  if ((e & 1) && e < e1) {
+    const int2 q = __ldg(entries + e++);
+    nbr += bit_of(my[q.x >> 5], q.x) * coefficient<kFirst>(q.y);
+  }
+  for (; e + 1 < e1; e += 2) {  // e even: two entries in one aligned 16-byte load
+    const int4 q = __ldg(reinterpret_cast<const int4*>(entries + e));
+    nbr += bit_of(my[q.x >> 5], q.x) * coefficient<kFirst>(q.y) + bit_of(my[q.z >> 5], q.z) * coefficient<kFirst>(q.w);
+  }
+  if (e < e1) {
+    const int2 q = __ldg(entries + e);
+    nbr += bit_of(my[q.x >> 5], q.x) * coefficient<kFirst>(q.y);
+  }
+  return nbr;
+}
+
+// x_node = (nbr + u16 * scale < thr), rounded as the plain version rounds.
+__device__ __forceinline__ bool decide(int nbr, uint32_t u16, float scale, float thr) {
+  return __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), scale)) < thr;
+}
+
+template <bool kFirst>
+__device__ __forceinline__ void tile_sweep(uint32_t* my, int s, const ListSweepArgs& a, uint4& d, long long chain) {
+  const float* thr = kFirst ? a.thr1 : a.thr2;
+  int e1 = __ldg(a.offsets);
+  for (int k = 0; k < a.N; ++k) {
+    const int e0 = e1;
+    e1 = __ldg(a.offsets + k + 1);
+    const int nbr = tile_sum<kFirst>(my, a.entries, e0, e1);
+    const uint32_t u16 = rl::sweep_u16(a.use_prng, d, s * a.N + k, chain, a.seed, a.noise, a.B);
+    rl::set_bit(my, __ldg(a.nodes + k), decide(nbr, u16, a.scale, __ldg(thr + k)));
+  }
+}
+
+__global__ void wsweep_kernel(const ListSweepArgs a) {
+  extern __shared__ uint32_t sm[];
+  const long long b0 = (long long)blockIdx.x * blockDim.x;
+  const int nb = min((long long)blockDim.x, a.B - b0);
+  rl::load_chains(sm, a.words, b0, nb, a.W);
+  if (threadIdx.x < nb) {
+    uint32_t* my = sm + threadIdx.x * rl::smem_stride(a.W);
+    const long long chain = b0 + threadIdx.x;
+    uint4 d = make_uint4(0u, 0u, 0u, 0u);
+    tile_sweep<true>(my, 0, a, d, chain);
+    for (int s = 1; s < a.S; ++s) tile_sweep<false>(my, s, a, d, chain);
+  }
+  rl::store_chains(sm, a.words, b0, nb, a.W);
+}
+
+// K7: neighbour loads issued together, then summed
+constexpr int kBatch = 4;
+
+// The staged list of K7: the call's S sweeps walk S * E entries in order,
+// entry v being entries[v % E]; stage g holds [g * stage, (g + 1) * stage)
+// in buffer g & 1. Every thread of the block walks the same entries, so
+// the block moves from stage to stage together.
+struct ListStages {
+  int2* buf;  // [2, stage] shared memory
+  const int2* entries;
+  int E, stage;
+  long long total;  // S * E
+  long long g;      // current stage
+  int pos;          // the next entry's place in stage g
+
+  __device__ void fetch(long long gs) {
+    int2* dst = buf + (gs & 1) * stage;
+    const long long v0 = gs * stage;
+    const int cnt = (int)min((long long)stage, total - v0), start = (int)(v0 % E);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      int src = start + i;
+      if (src >= E) src %= E;
+      __pipeline_memcpy_async(dst + i, entries + src, sizeof(int2));
+    }
+    __pipeline_commit();
+  }
+
+  __device__ void begin() {
+    g = 0;
+    pos = 0;
+    fetch(0);
+    if (stage < total) {
+      fetch(1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+  }
+
+  // The next entry of the walk; crosses into the next stage, block-wide,
+  // at the end of this one.
+  __device__ int2 next() {
+    if (pos == stage) {
+      __pipeline_wait_prior(0);
+      __syncthreads();  // stage g + 1 is in for every thread, stage g is done with
+      ++g;
+      pos = 0;
+      if ((g + 1) * stage < total) fetch(g + 1);  // into the buffer stage g used
+    }
+    return buf[(g & 1) * stage + pos++];
+  }
+};
+
+// Reads the walk's next `cnt` <= kBatch entries and issues the loads of
+// their chain words (first: the first sweep's coefficients). A batch inside
+// the current stage is read without the stage check.
+__device__ __forceinline__ void read_entries(int (&j)[kBatch], int (&c)[kBatch], uint32_t (&x)[kBatch], int cnt,
+                                             bool first, ListStages& ls, const uint32_t* col, bool live, size_t B) {
+  if (ls.pos + cnt <= ls.stage) {
+    const int2* p = ls.buf + (ls.g & 1) * ls.stage + ls.pos;
+    ls.pos += cnt;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int2 ent = q < cnt ? p[q] : make_int2(0, 0);
+      j[q] = ent.x;
+      c[q] = first ? coefficient<true>(ent.y) : coefficient<false>(ent.y);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int2 ent = q < cnt ? ls.next() : make_int2(0, 0);
+      j[q] = ent.x;
+      c[q] = first ? coefficient<true>(ent.y) : coefficient<false>(ent.y);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kBatch; ++q) x[q] = (live && q < cnt) ? col[(size_t)(j[q] >> 5) * B] : 0u;
+}
+
+// One sweep of K7 over the chain's column `col` (word j at col[j * B]): per
+// step, the node's own word and the first kBatch neighbour words are loaded
+// together, the Philox draw is made while they are in flight, and the bit
+// is stored back.
+template <bool kFirst>
+__device__ __forceinline__ void column_sweep(uint32_t* col, bool live, int s, const ListSweepArgs& a, ListStages& ls,
+                                             uint4& d, long long chain) {
+  const size_t B = a.B;
+  const float* thr = kFirst ? a.thr1 : a.thr2;
+  int e1 = __ldg(a.offsets);
+  for (int k = 0; k < a.N; ++k) {
+    const int e0 = e1;
+    e1 = __ldg(a.offsets + k + 1);
+    const int node = __ldg(a.nodes + k), deg = e1 - e0;
+    uint32_t* own = col + (size_t)(node >> 5) * B;
+    const uint32_t cur = live ? *own : 0u;
+    uint32_t u16 = 0u;
+    int nbr = 0;
+    for (int e = 0; e < deg || e == 0; e += kBatch) {  // once for an empty list: the draw is made
+      int j[kBatch], c[kBatch];
+      uint32_t x[kBatch];
+      read_entries(j, c, x, min(deg - e, kBatch), kFirst, ls, col, live, B);
+      if (e == 0 && live) u16 = rl::sweep_u16(a.use_prng, d, s * a.N + k, chain, a.seed, a.noise, a.B);
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) nbr += bit_of(x[q], j[q]) * c[q];
+    }
+    if (live) {
+      const uint32_t m = 1u << (node & 31);
+      *own = decide(nbr, u16, a.scale, __ldg(thr + k)) ? (cur | m) : (cur & ~m);
+    }
+  }
+}
+
+__global__ void wsweep_chunked_kernel(const ListSweepArgs a, int stage) {
+  extern __shared__ int2 stage_buf[];
+  const long long chain = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = chain < a.B;  // every thread walks the stages; only live ones touch chains
+  uint32_t* col = a.words + (live ? chain : 0);
+  const int E = __ldg(a.offsets + a.N);
+  ListStages ls{stage_buf, a.entries, E, stage, (long long)a.S * E, 0, 0};
+  ls.begin();
+  uint4 d = make_uint4(0u, 0u, 0u, 0u);
+  column_sweep<true>(col, live, 0, a, ls, d, chain);
+  for (int s = 1; s < a.S; ++s) column_sweep<false>(col, live, s, a, ls, d, chain);
+}
+
+// ---------------------------------------------------------------------------
+// K8a and K8b: the greedy 1-flip sweep on bit-planes
 
 template <bool kGlobal>
 __device__ __forceinline__ uint32_t row_word(const uint32_t* p) {
@@ -68,24 +289,17 @@ __device__ __forceinline__ uint32_t row_word(const uint32_t* p) {
 // Signed weighted popcount of one chain against one node's rows. `pos` is
 // the node's row of positive plane 0; positive plane b's row is at
 // pos + b * pstride, negative plane b's at pos + (K + b) * pstride.
-// kFirst: the first sweep's mixed domain, with `e` the node's earlier row.
-template <int K, bool kSigned, bool kFirst, bool kGlobal>
-__device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* e, const uint32_t* pos,
-                                            size_t pstride, int W) {
+template <int K, bool kSigned, bool kGlobal>
+__device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* pos, size_t pstride, int W) {
   int acc[K];
 #pragma unroll
   for (int b = 0; b < K; ++b) acc[b] = 0;
   for (int j = 0; j < W; ++j) {
     const uint32_t x = my[j];
-    const uint32_t xe = kFirst ? x & row_word<kGlobal>(e + j) : 0u;
 #pragma unroll
     for (int b = 0; b < K; ++b) {
-      const uint32_t m = row_word<kGlobal>(pos + b * pstride + j);
-      acc[b] += kFirst ? 2 * __popc(x & m) - __popc(xe & m) : __popc(x & m);
-      if (kSigned) {
-        const uint32_t mn = row_word<kGlobal>(pos + (K + b) * pstride + j);
-        acc[b] -= kFirst ? 2 * __popc(x & mn) - __popc(xe & mn) : __popc(x & mn);
-      }
+      acc[b] += __popc(x & row_word<kGlobal>(pos + b * pstride + j));
+      if (kSigned) acc[b] -= __popc(x & row_word<kGlobal>(pos + (K + b) * pstride + j));
     }
   }
   int s = 0;
@@ -94,112 +308,27 @@ __device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* 
   return s;
 }
 
-struct SweepArgs {
-  const int32_t* nodes;  // [N] node of each step
-  const float* thr1;     // [N] first-sweep thresholds, noise_scale / 2 included
-  const float* thr2;     // [N] later-sweep thresholds
-  const uint32_t* planes;  // [P, N, W]: earlier, K positive, K negative if signed
-  const int32_t* noise;  // [S * N, B] injected u16, or null with use_prng
-  uint32_t seed;
-  float scale;  // noise_scale / 65536
-  int use_prng;
-  uint32_t* words;  // [B, W] chains, updated in place
-  int B, W, N, S;
-};
-
-// Step sk = s * N + k of one chain; `e` and `pos` as in weighted_sum.
-template <int K, bool kSigned, bool kGlobal>
-__device__ __forceinline__ void sweep_step(uint32_t* my, int sk, int k, const uint32_t* e, const uint32_t* pos,
-                                           size_t pstride, const SweepArgs& a, uint4& d, long long chain) {
-  const bool first = sk < a.N;
-  const int nbr = first ? weighted_sum<K, kSigned, true, kGlobal>(my, e, pos, pstride, a.W)
-                        : weighted_sum<K, kSigned, false, kGlobal>(my, e, pos, pstride, a.W);
-  const float thr = __ldg((first ? a.thr1 : a.thr2) + k);
-  const uint32_t u16 = rl::sweep_u16(a.use_prng, d, sk, chain, a.seed, a.noise, a.B);
-  const float lhs = __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), a.scale));
-  rl::set_bit(my, __ldg(a.nodes + k), lhs < thr);
-}
-
 // One greedy 1-flip step at node i; `pos` as in weighted_sum.
 template <int K, bool kSigned, bool kGlobal>
 __device__ __forceinline__ void flip_step(uint32_t* my, int i, const uint32_t* pos, size_t pstride, int W,
                                           int wdeg) {
-  const int p = weighted_sum<K, kSigned, false, kGlobal>(my, nullptr, pos, pstride, W);
+  const int p = weighted_sum<K, kSigned, kGlobal>(my, pos, pstride, W);
   const uint32_t cur = (my[i >> 5] >> (i & 31)) & 1u;
   const int cut = cur ? wdeg - p : p;  // weight to the other side
   if (wdeg - 2 * cut > 0) my[i >> 5] ^= 1u << (i & 31);  // strict improvement
 }
 
-// Starts the asynchronous copy of rows [c0, c0 + rows) of planes [p0, P)
+// Starts the asynchronous copy of rows [c0, c0 + rows) of planes [0, P)
 // into a stage laid out [P, chunk, W], as one committed batch.
-__device__ __forceinline__ void stage_rows(uint32_t* stage, const uint32_t* __restrict__ planes, int p0,
-                                           int P, int N, int W, int c0, int rows, int chunk) {
+__device__ __forceinline__ void stage_rows(uint32_t* stage, const uint32_t* __restrict__ planes, int P, int N, int W,
+                                           int c0, int rows, int chunk) {
   const int per_plane = rows * W;
-  for (int i = threadIdx.x; i < (P - p0) * per_plane; i += blockDim.x) {
-    const int q = i / per_plane, r = i - q * per_plane;
-    const int p = p0 + q;
+  for (int i = threadIdx.x; i < P * per_plane; i += blockDim.x) {
+    const int p = i / per_plane, r = i - p * per_plane;
     __pipeline_memcpy_async(stage + (size_t)p * chunk * W + r, planes + ((size_t)p * N + c0) * W + r,
                             sizeof(uint32_t));
   }
   __pipeline_commit();
-}
-
-template <int K, bool kSigned>
-__global__ void wsweep_kernel(const SweepArgs a) {
-  extern __shared__ uint32_t sm[];
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, a.B - b0);
-  rl::load_chains(sm, a.words, b0, nb, a.W);
-  if (threadIdx.x < nb) {
-    uint32_t* my = sm + threadIdx.x * rl::smem_stride(a.W);
-    const size_t pstride = (size_t)a.N * a.W;
-    uint4 d = make_uint4(0u, 0u, 0u, 0u);
-    for (int sk = 0; sk < a.S * a.N; ++sk) {
-      const int k = sk % a.N;
-      const uint32_t* e = a.planes + (size_t)k * a.W;
-      sweep_step<K, kSigned, true>(my, sk, k, e, e + pstride, pstride, a, d, b0 + threadIdx.x);
-    }
-  }
-  rl::store_chains(sm, a.words, b0, nb, a.W);
-}
-
-template <int K, bool kSigned>
-__global__ void wsweep_chunked_kernel(const SweepArgs a, int chunk) {
-  constexpr int P = 1 + (kSigned ? 2 : 1) * K;
-  extern __shared__ uint32_t sm[];
-  const int W = a.W, N = a.N;
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, a.B - b0);
-  uint32_t* stages = sm + (size_t)blockDim.x * rl::smem_stride(W);
-  const size_t stage_words = (size_t)P * chunk * W, pstride = (size_t)chunk * W;
-  const int nchunks = (N + chunk - 1) / chunk, total = a.S * nchunks;
-  auto fetch = [&](int g) {  // chunk g of all sweeps; the earlier plane only in the first
-    const int c0 = (g % nchunks) * chunk;
-    stage_rows(stages + (g & 1) * stage_words, a.planes, g < nchunks ? 0 : 1, P, N, W, c0, min(chunk, N - c0),
-               chunk);
-  };
-  fetch(0);
-  rl::load_chains(sm, a.words, b0, nb, W);
-  uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
-  uint4 d = make_uint4(0u, 0u, 0u, 0u);
-  for (int g = 0; g < total; ++g) {
-    if (g + 1 < total) {
-      fetch(g + 1);  // into the stage that chunk g - 1 used
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // chunk g is in shared memory for every thread
-    if (threadIdx.x < nb) {
-      const uint32_t* st = stages + (g & 1) * stage_words;
-      const int s = g / nchunks, c0 = (g % nchunks) * chunk, rows = min(chunk, N - c0);
-      for (int r = 0; r < rows; ++r)
-        sweep_step<K, kSigned, false>(my, s * N + c0 + r, c0 + r, st + r * W, st + pstride + r * W, pstride, a, d,
-                                      b0 + threadIdx.x);
-    }
-    __syncthreads();  // every thread is done with chunk g's stage
-  }
-  rl::store_chains(sm, a.words, b0, nb, W);
 }
 
 struct FlipArgs {
@@ -236,26 +365,26 @@ __global__ void wsweep_1flip_chunked_kernel(const FlipArgs a, int chunk) {
   const int nchunks = (N + chunk - 1) / chunk;
   auto fetch = [&](int g) {
     const int c0 = g * chunk;
-    stage_rows(stages + (g & 1) * stage_words, a.planes, 0, P, N, W, c0, min(chunk, N - c0), chunk);
+    stage_rows(stages + (g & 1) * stage_words, a.planes, P, N, W, c0, min(chunk, N - c0), chunk);
   };
   fetch(0);
   rl::load_chains(sm, a.words, b0, nb, W);
   uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
   for (int g = 0; g < nchunks; ++g) {
     if (g + 1 < nchunks) {
-      fetch(g + 1);
+      fetch(g + 1);  // into the stage that chunk g - 1 used
       __pipeline_wait_prior(1);
     } else {
       __pipeline_wait_prior(0);
     }
-    __syncthreads();
+    __syncthreads();  // chunk g is in shared memory for every thread
     if (threadIdx.x < nb) {
       const uint32_t* st = stages + (g & 1) * stage_words;
       const int c0 = g * chunk, rows = min(chunk, N - c0);
       for (int r = 0; r < rows; ++r)
         flip_step<K, kSigned, false>(my, c0 + r, st + r * W, pstride, W, __ldg(a.wdeg + c0 + r));
     }
-    __syncthreads();
+    __syncthreads();  // every thread is done with chunk g's stage
   }
   rl::store_chains(sm, a.words, b0, nb, W);
 }
@@ -268,14 +397,9 @@ __global__ void wsweep_1flip_chunked_kernel(const FlipArgs a, int chunk) {
         kern<14, sgn>, kern<15, sgn>                                                                    \
   }
 
-using SweepFn = void (*)(SweepArgs);
-using SweepChunkedFn = void (*)(SweepArgs, int);
 using FlipFn = void (*)(FlipArgs);
 using FlipChunkedFn = void (*)(FlipArgs, int);
 
-const SweepFn kSweep[2][kMaxPlanes] = {RL_BY_K(wsweep_kernel, false), RL_BY_K(wsweep_kernel, true)};
-const SweepChunkedFn kSweepChunked[2][kMaxPlanes] = {RL_BY_K(wsweep_chunked_kernel, false),
-                                                     RL_BY_K(wsweep_chunked_kernel, true)};
 const FlipFn kFlip[2][kMaxPlanes] = {RL_BY_K(wsweep_1flip_kernel, false), RL_BY_K(wsweep_1flip_kernel, true)};
 const FlipChunkedFn kFlipChunked[2][kMaxPlanes] = {RL_BY_K(wsweep_1flip_chunked_kernel, false),
                                                    RL_BY_K(wsweep_1flip_chunked_kernel, true)};
@@ -298,30 +422,41 @@ cudaError_t launch(Fn kernel, int B, int W, size_t extra, cudaStream_t st, Args.
   return cudaGetLastError();
 }
 
-SweepArgs sweep_args(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* planes,
-                     const int32_t* noise, int use_prng, uint32_t seed, float scale, int32_t* words, int B, int W,
-                     int N, int S) {
-  return SweepArgs{nodes, thr1, thr2, reinterpret_cast<const uint32_t*>(planes), noise, seed, scale, use_prng,
-                   reinterpret_cast<uint32_t*>(words), B, W, N, S};
+ListSweepArgs list_args(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* offsets,
+                        const int32_t* entries, const int32_t* noise, int use_prng, uint32_t seed, float scale,
+                        int32_t* words, int B, int W, int N, int S) {
+  return ListSweepArgs{nodes, thr1, thr2, offsets, reinterpret_cast<const int2*>(entries), noise, seed, scale,
+                       use_prng, reinterpret_cast<uint32_t*>(words), B, W, N, S};
 }
 
 }  // namespace
 
-extern "C" int wsweep(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* planes, int k,
-                      int is_signed, const int32_t* noise, int use_prng, uint32_t seed, float scale, int32_t* words,
-                      int B, int W, int N, int S, cudaStream_t st) {
-  const SweepArgs a = sweep_args(nodes, thr1, thr2, planes, noise, use_prng, seed, scale, words, B, W, N, S);
-  return launch(by_planes(kSweep, k, is_signed), B, W, 0, st, a);
+extern "C" int wsweep(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* offsets,
+                      const int32_t* entries, const int32_t* noise, int use_prng, uint32_t seed, float scale,
+                      int32_t* words, int B, int W, int N, int S, cudaStream_t st) {
+  const ListSweepArgs a = list_args(nodes, thr1, thr2, offsets, entries, noise, use_prng, seed, scale, words, B, W,
+                                    N, S);
+  return launch(wsweep_kernel, B, W, 0, st, a);
 }
 
-extern "C" int wsweep_chunked(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* planes,
-                              int k, int is_signed, const int32_t* noise, int use_prng, uint32_t seed, float scale,
-                              int32_t* words, int B, int W, int N, int S, int chunk, cudaStream_t st) {
-  if (chunk < 1) return cudaErrorInvalidValue;
-  chunk = min(chunk, N);
-  const SweepArgs a = sweep_args(nodes, thr1, thr2, planes, noise, use_prng, seed, scale, words, B, W, N, S);
-  const size_t stages = 2 * (size_t)(1 + (is_signed ? 2 : 1) * k) * chunk * W * sizeof(uint32_t);
-  return launch(by_planes(kSweepChunked, k, is_signed), B, W, stages, st, a, chunk);
+// words: [W, B], chain-minor. One thread per chain in blocks of
+// kChainsPerBlock, beside two stages of `stage` list entries.
+extern "C" int wsweep_chunked(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* offsets,
+                              const int32_t* entries, const int32_t* noise, int use_prng, uint32_t seed,
+                              float scale, int32_t* words, int B, int W, int N, int S, int stage, cudaStream_t st) {
+  if (stage < 1) return cudaErrorInvalidValue;
+  const ListSweepArgs a = list_args(nodes, thr1, thr2, offsets, entries, noise, use_prng, seed, scale, words, B, W,
+                                    N, S);
+  const size_t smem = 2 * (size_t)stage * sizeof(int2);
+  if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(wsweep_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = rl::kChainsPerBlock;
+  if (B > 0) wsweep_chunked_kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(a, stage);
+  return cudaGetLastError();
 }
 
 extern "C" int wsweep_1flip(const int32_t* planes, const int32_t* wdeg, int k, int is_signed, int32_t* words,

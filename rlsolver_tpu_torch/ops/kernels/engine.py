@@ -2,31 +2,35 @@
 `rlsolver_tpu/ops/pallas/engine.py:FusedSweepEngine`, and of the 1-flip
 dispatch in `rlsolver_tpu/envs/maxcut.py:68-100`).
 
-The JAX package's order stays: the {0, +-1} kernels K4/K5 when the weights
-allow them and their tables fit, else the bit-plane kernels with the tables
-read in place (K6/K8a) when they fit, else the node-chunked ones (K7/K8b).
-What "fit" means is re-derived for the card: the JAX package asked whether
-the tables fit the TPU core's 16 MB of VMEM; here the test is the tables'
-bytes against a share of the card's L2, one for the sweeps and one for the
-1-flip sweep (`SWEEP_L2_SHARE`, `FLIP_L2_SHARE`).
+The noisy sweep. K4 first, when the weights are in {0, +-1} and its tables
+fit `SWEEP_L2_SHARE` of the card's L2. Otherwise K6 or K7, which read each
+step's neighbour list (a few hundred KB at Gset sizes, always in L2) and
+differ in where the chains live. K6 keeps a block's tile of 128
+chains in shared memory, W words each; K7 keeps the chains in device memory,
+chain-minor, and stages only the lists. The JAX package asked whether its
+dense tables fit the TPU core's VMEM; what limits K6 on the card is its
+chain tile: the fewer tiles share an SM, the fewer warps hide the latency of
+each step, and past the card's shared memory the tiles run in waves. So K6
+runs while a tile leaves at least `K6_MIN_TILES_PER_SM` tiles per SM, and K7
+beyond, with `LIST_STAGE_ENTRIES` list entries per stage.
+`scripts/torch_engine_share.py` times the two across sizes, chain counts and
+densities (PERF.md): K6 was faster from 4 tiles per SM; at 2 or 3 it was up
+to 14% faster at 24,576 chains but K7 was 1.2-1.5 times faster at 262,144,
+and at 1 tile K7 was faster everywhere.
 
-The shares are not a speed rule. `scripts/torch_engine_share.py` found the
-in-place kernels slower than the chunked ones at every table size and chain
-count it measured on the H100 (1.2-2.1 times with the tables in L2,
-2.2-2.4 times past it; PERF.md), so there is no share up to which reading in
-place wins. The shares keep the in-place tier on the path that the
-three-way order gives it, and off tables past the L2 cliff: each is the
-largest measured share at which the in-place kernel took under twice the
-chunked one's time, rounded down to a tenth. That criterion was chosen after the first one (the
-in-place kernel no slower) had found no share at all. Whether to drop the
-tier, or to stage K6/K8a as well, is open (ROADMAP.md).
+The 1-flip sweep: K5 when the weights allow it and its tables fit, else the
+bit-plane kernels with the tables read in place (K8a) when their bytes fit
+`FLIP_L2_SHARE` of L2, else node-chunked (K8b). That
+share is not a speed rule: `scripts/torch_engine_share.py` found K8a slower
+than K8b at every size it measured (PERF.md), and the share keeps K8a on the
+path the three-way order gives it, off tables past the L2 cliff (the
+largest measured share at which K8a took under twice K8b's time). K8b's
+chunk is measured too: a block holds a tile of 128 chains and two stages of
+`chunk` rows of every plane, and the fastest chunk at each size was the
+largest of those that let the most blocks share an SM.
 
-The node chunk of K7/K8b is measured too: a block holds a tile of 128
-chains and two stages of `chunk` rows of every plane, and the fastest chunk
-at each size was the largest of those that let the most blocks share an SM.
-
-The rule reads only sizes and the weights' bit-planes, so `plan_sweep` and
-`plan_1flip` can be asked about a graph without building its tables.
+The rule reads only sizes and the weights, so `plan_sweep` and `plan_1flip`
+can be asked about a graph without building its tables.
 """
 
 from __future__ import annotations
@@ -45,14 +49,18 @@ from rlsolver_tpu_torch.ops.kernels.codec import num_words
 # NVIDIA H100 SXM: 50 MB of L2 (data sheet), which the CUDA runtime reports
 # as 52,428,800 bytes; used when the device is the CPU (tests, planning).
 H100_L2_BYTES = 52_428_800
-# The share of L2 that an in-place kernel's tables may take (see above).
+# The share of L2 that K4's or K8a's tables may take (see above).
 SWEEP_L2_SHARE = 0.8
 FLIP_L2_SHARE = 0.7
+# K6 while its chain tile leaves this many tiles per SM, else K7 (measured).
+K6_MIN_TILES_PER_SM = 4
+# K7's list entries per stage (8 bytes each, two stages a block; measured).
+LIST_STAGE_ENTRIES = 128
 # H100 (compute capability 9.0, CUDA C++ Programming Guide): 228 KB of
 # shared memory per SM, of which the runtime keeps 1 KB per resident block.
 H100_SMEM_PER_SM = 233_472
 H100_SMEM_RESERVED_PER_BLOCK = 1_024
-# Rows per stage at most: beyond 8, with as many blocks per SM, a stage
+# Rows per K8b stage at most: beyond 8, with as many blocks per SM, a stage
 # gained under 1% (PERF.md).
 MAX_CHUNK = 8
 
@@ -64,14 +72,28 @@ def l2_bytes(device) -> int:
     return H100_L2_BYTES
 
 
+def _blocks_per_sm(smem: int) -> int:
+    return H100_SMEM_PER_SM // (smem + H100_SMEM_RESERVED_PER_BLOCK)
+
+
+def _tile_bytes(n: int) -> int:
+    """Shared memory of a full tile of chains, N nodes each (csrc/common.cuh)."""
+    return build.header_constant("kChainsPerBlock") * (num_words(n) | 1) * 4
+
+
+def k6_tiles_per_sm(n: int) -> int:
+    """How many of K6's chain tiles share an SM at N nodes."""
+    return _blocks_per_sm(_tile_bytes(n)) if _tile_bytes(n) <= build.header_constant("kMaxSmem") else 0
+
+
 def pick_node_chunk(n: int, n_planes: int) -> int:
-    """Rows per stage of K7/K8b. Of the chunks whose two stages of
+    """Rows per stage of K8b. Of the chunks whose two stages of
     [n_planes, chunk, W] words fit beside a full tile of chains in a block's
     shared memory (the limits of csrc/common.cuh), the largest of those that
     let the most blocks share an SM; 1 when none fits (the kernel then fits
     fewer chains)."""
     w = num_words(n)
-    tile = build.header_constant("kChainsPerBlock") * (w | 1) * 4
+    tile = _tile_bytes(n)
 
     def smem(c):
         return tile + 2 * n_planes * c * w * 4
@@ -79,36 +101,43 @@ def pick_node_chunk(n: int, n_planes: int) -> int:
     fits = [c for c in range(1, min(n, MAX_CHUNK) + 1) if smem(c) <= build.header_constant("kMaxSmem")]
     if not fits:
         return 1
-    return max(fits, key=lambda c: (H100_SMEM_PER_SM // (smem(c) + H100_SMEM_RESERVED_PER_BLOCK), c))
+    return max(fits, key=lambda c: (_blocks_per_sm(smem(c)), c))
 
 
 class Plan(NamedTuple):
-    weighted: bool  # bit-plane kernels (K6-K8) rather than K4/K5
-    node_chunk: Optional[int]  # None: tables read in place
+    weighted: bool  # K6-K8 rather than K4/K5
+    # None: K6 or K8a (chains in shared memory, tables read in place); else
+    # K7's list entries per stage, or K8b's rows per stage
+    node_chunk: Optional[int]
 
 
-def _plan(graph: Graph, fit_bytes: float, unit_planes: int, bit_planes) -> Plan:
-    """K4/K5 (`unit_planes` [N, W] planes, signed) when the weights are in
-    {0, +-1} and they fit, else the bit-plane kernel (`bit_planes(k, signed)`
-    planes) in place when it fits, else node-chunked."""
+def _unit_fits(graph: Graph, fit_bytes: float, unit_planes: int) -> bool:
+    """Whether K4/K5 take the graph: weights in {0, +-1}, and their
+    `unit_planes` [N, W] planes (twice that when signed) fit."""
     n = graph.num_nodes
-    plane_bytes = n * num_words(n) * 4
     signed = bool((graph.weights < 0).any())
-    if sw.is_unit_weight(graph) and unit_planes * (2 if signed else 1) * plane_bytes <= fit_bytes:
-        return Plan(False, None)
-    p = bit_planes(*wsw.weight_planes(graph))
-    return Plan(True, None if p * plane_bytes <= fit_bytes else pick_node_chunk(n, p))
+    return sw.is_unit_weight(graph) and unit_planes * (2 if signed else 1) * n * num_words(n) * 4 <= fit_bytes
 
 
 def plan_sweep(graph: Graph, l2: int) -> Plan:
     """K4, K6 or K7 for the noisy sweeps. ValueError on weights that no
     packed kernel takes (non-integer, or |w| >= 2^15)."""
-    return _plan(graph, SWEEP_L2_SHARE * l2, 3, wsw.num_sweep_planes)
+    if _unit_fits(graph, SWEEP_L2_SHARE * l2, 3):
+        return Plan(False, None)
+    wsw.weight_planes(graph)  # raises on weights no packed kernel takes
+    if k6_tiles_per_sm(graph.num_nodes) >= K6_MIN_TILES_PER_SM:
+        return Plan(True, None)
+    return Plan(True, LIST_STAGE_ENTRIES)
 
 
 def plan_1flip(graph: Graph, l2: int) -> Plan:
-    """K5, K8a or K8b for the greedy 1-flip sweep, by the same rule."""
-    return _plan(graph, FLIP_L2_SHARE * l2, 1, lambda k, signed: k * (2 if signed else 1))
+    """K5, K8a or K8b for the greedy 1-flip sweep."""
+    if _unit_fits(graph, FLIP_L2_SHARE * l2, 1):
+        return Plan(False, None)
+    k, signed = wsw.weight_planes(graph)
+    n = graph.num_nodes
+    p = k * (2 if signed else 1)
+    return Plan(True, None if p * n * num_words(n) * 4 <= FLIP_L2_SHARE * l2 else pick_node_chunk(n, p))
 
 
 class FusedSweepEngine(NamedTuple):

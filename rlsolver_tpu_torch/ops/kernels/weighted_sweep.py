@@ -1,28 +1,34 @@
 """MCPG's degree-ordered sweep and the greedy 1-flip sweep for general integer
-weights, on signed bit-planes (counterpart of
-`rlsolver_tpu/ops/pallas/weighted_sweep.py`).
+weights (counterpart of `rlsolver_tpu/ops/pallas/weighted_sweep.py`).
 
-An integer weight |w| < 2^15 splits into k = bit_length(max |w|) binary
-planes, so a weighted neighbour sum is a small static sum of popcounts:
+The JAX package splits an integer weight |w| < 2^15 into k =
+bit_length(max |w|) binary planes, so that a weighted neighbour sum is a
+small static sum of popcounts,
 
-  nbr = sum_b 2^b (pc(x & pos_b[k]) - pc(x & neg_b[k]))
+  nbr = sum_b 2^b (pc(x & pos_b[k]) - pc(x & neg_b[k])),
 
-with the negative planes present only when some weight is below zero. The
+with the negative planes present only when some weight is below zero; the
 first sweep's mixed domain (processed neighbours count with their bit,
-unprocessed ones with 2x - 0.5) needs one more plane, `earlier[k]` (bit j set
-iff node j precedes step k in sweep order): proc + 2 unproc = 2 pc(x & m) -
-pc(x & m & earlier), per plane.
+unprocessed ones with 2x - 0.5) needs one more plane, `earlier[k]` (bit j
+set iff node j precedes step k in sweep order): proc + 2 unproc =
+2 pc(x & m) - pc(x & m & earlier), per plane. `WeightedSweepTables` keeps
+those planes, word for word JAX's, and beside them each step's neighbour
+list, from which the port's sweeps compute the same integer:
+
+  nbr = sum over the list of c * x_j,  c = w (later sweeps),
+        c = w if j precedes step k else 2w (first sweep).
 
   * `mcpg_sweep_weighted` (injected noise [S*N, B]) and
     `mcpg_sweep_weighted_fused` (Philox4x32-10 in the kernel: draw
-    t = s*N + k of each chain, low 16 bits, as in K4): K6 with the tables read
-    in place, or K7 with `node_chunk` rows of every plane staged in shared
-    memory at a time. The chunk changes where the rows are read from, not
-    the result: K6 and K7 give the same bits, and on a {0, +-1} graph both
-    give K4's bits for the same noise or seed.
-  * `sweep_1flip_weighted`: the greedy 1-flip sweep in ascending node order,
-    strict improvements only (K8a, or K8b with `node_chunk`); bit-exact with
-    the f32 incremental-gain sweep of `MaxcutEnv`.
+    t = s*N + k of each chain, low 16 bits, as in K4): K6 with a block's
+    chains in shared memory, or, with `node_chunk`, K7 with the chains in
+    device memory and the lists staged in shared memory `node_chunk` entries
+    at a time. Both give the same bits, and on a {0, +-1} graph K4's bits
+    for the same noise or seed.
+  * `sweep_1flip_weighted`: the greedy 1-flip sweep in ascending node order
+    on the bit-planes of `WeightedAdjPlanes`, strict improvements only (K8a,
+    or K8b with `node_chunk` rows staged at a time); bit-exact with the f32
+    incremental-gain sweep of `MaxcutEnv`.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/weighted_sweep.cu`);
 on a CPU tensor it runs the plain PyTorch version. The tables' `build`
@@ -45,11 +51,11 @@ from rlsolver_tpu_torch.ops.kernels.mcpg_sweep import _noisy_thresholds, sweep_s
 
 _WT = "rlsolver_tpu/ops/pallas/weighted_sweep.py"
 WSWEEP = register(Kernel(
-    "mcpg_sweep_weighted", "weighted_sweep.cu", "wsweep", "ppppiipiufpiiii",
+    "mcpg_sweep_weighted", "weighted_sweep.cu", "wsweep", "ppppppiufpiiii",
     replaces=f"{_WT}:155 _wsweep_kernel",
 ))
 WSWEEP_CHUNKED = register(Kernel(
-    "mcpg_sweep_weighted_chunked", "weighted_sweep.cu", "wsweep_chunked", "ppppiipiufpiiiii",
+    "mcpg_sweep_weighted_chunked", "weighted_sweep.cu", "wsweep_chunked", "ppppppiufpiiiii",
     replaces=f"{_WT}:497 _wsweep_chunked_kernel",
 ))
 WSWEEP_1FLIP = register(Kernel(
@@ -81,11 +87,6 @@ def weight_planes(graph: Graph) -> Tuple[int, bool]:
     """(k, signed): the number of bit-planes and whether negative planes are
     needed, from the edge weights alone (no tables are built)."""
     return _max_abs_weight(graph.weights).bit_length(), bool((graph.weights < 0).any())
-
-
-def num_sweep_planes(k: int, signed: bool) -> int:
-    """Planes of the sweep tables: earlier, k positive, k negative if signed."""
-    return 1 + k * (2 if signed else 1)
 
 
 def _integer_weights(graph: Graph, device) -> torch.Tensor:
@@ -125,13 +126,18 @@ def _signed_rows(planes: torch.Tensor, k: int, signed: bool, n: int, dtype) -> t
 class WeightedSweepTables(NamedTuple):
     """Static tables of the weighted sweep, rows in sweep (descending-degree)
     order. planes [P, N, W] int32: `earlier`, the k positive planes, then the
-    k negative planes on a graph with negative weights (P = 1 + k or 1 + 2k).
-    The thresholds are the JAX package's (noise-free, f32)."""
+    k negative planes on a graph with negative weights (P = 1 + k or 1 + 2k),
+    JAX's layout. The sweeps read the neighbour lists: step k's entries are
+    entries[offsets[k]:offsets[k + 1]], one {j, (w << 1) | earlier} per
+    neighbour j of nodes[k] with weight w, in ascending j. The thresholds are
+    the JAX package's (noise-free, f32)."""
 
     nodes: torch.Tensor  # [N] int32 node ids in sweep order
     thr1: torch.Tensor  # [N] f32 first-sweep thresholds (incl. +0.5 * U_k)
     thr2: torch.Tensor  # [N] f32 later-sweep thresholds
     planes: torch.Tensor  # [P, N, W] int32
+    offsets: torch.Tensor  # [N + 1] int32 CSR row offsets of the lists
+    entries: torch.Tensor  # [E, 2] int32 {j, (w << 1) | earlier}
     k: int
     signed: bool
 
@@ -164,14 +170,35 @@ class WeightedSweepTables(NamedTuple):
         u_cnt = (a_ord * ~earlier).sum(dim=1, dtype=torch.int64).cpu().numpy().astype(np.float64)
         wdeg = graph.weighted_degrees()[order].astype(np.float64)
         pos, neg = _bit_planes(a_ord)
+        steps, nbrs = torch.nonzero(a_ord, as_tuple=True)  # row-major: by step, then ascending j
+        offsets = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        offsets[1:] = torch.cumsum(torch.bincount(steps, minlength=n), 0)
+        meta = a_ord[steps, nbrs] * 2 + earlier[steps, nbrs].to(torch.int32)
         return WeightedSweepTables(
             nodes=order_t.to(torch.int32),
             thr1=torch.from_numpy((wdeg / 2.0 + 0.5 * u_cnt).astype(np.float32)).to(device),
             thr2=torch.from_numpy((wdeg / 2.0).astype(np.float32)).to(device),
             planes=torch.stack([pack_bits(earlier), *pos, *neg]),
+            offsets=offsets,
+            entries=torch.stack([nbrs.to(torch.int32), meta.to(torch.int32)], dim=1).contiguous(),
             k=len(pos),
             signed=bool(neg),
         )
+
+
+def list_coefficients(tables: WeightedSweepTables, dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lists as dense [N steps, N nodes] coefficients: C1 of the first
+    sweep (w for an earlier neighbour, 2w for a later one) and C2 = w."""
+    n = tables.num_nodes
+    off = tables.offsets.long()
+    rows = torch.repeat_interleave(torch.arange(n, device=off.device), off[1:] - off[:-1])
+    j, meta = tables.entries[:, 0].long(), tables.entries[:, 1]
+    w = (meta >> 1).to(dtype)
+    c1 = torch.zeros(n, n, dtype=dtype, device=off.device)
+    c2 = torch.zeros(n, n, dtype=dtype, device=off.device)
+    c1[rows, j] = w * (2 - (meta & 1)).to(dtype)
+    c2[rows, j] = w
+    return c1, c2
 
 
 def _check_chunk(node_chunk: Optional[int]) -> None:
@@ -180,12 +207,26 @@ def _check_chunk(node_chunk: Optional[int]) -> None:
 
 
 def _wsweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed):
-    """Plain version of K6/K7 (one function; the chunk is only where the
-    kernel reads its rows): with A the signed weights in sweep order and E the
-    earlier plane, C1 = 2A - A*E and C2 = A feed K4's plain step loop."""
-    a = _signed_rows(tables.planes[1:], tables.k, tables.signed, n, torch.float32)
-    e = unpack_bits(tables.earlier, n).to(torch.float32)
-    return sweep_steps_plain(2.0 * a - a * e, a, tables, words, n, num_sweeps, noise_scale, noise_u16, seed)
+    """Plain version of K6/K7 (one function; the kernels differ only in where
+    the chains live): the lists' C1 and C2 feed K4's plain step loop."""
+    c1, c2 = list_coefficients(tables)
+    return sweep_steps_plain(c1, c2, tables, words, n, num_sweeps, noise_scale, noise_u16, seed)
+
+
+def launch_sweep(tables, words, thr1, thr2, noise_u16, seed, noise_scale, num_sweeps, node_chunk):
+    """Runs K6 on words [B, W] in place, or with `node_chunk` K7, which takes
+    the chains chain-minor: the transposes to [W, B] and back are part of
+    it. Returns the swept words [B, W]."""
+    b, w = words.shape
+    n = tables.num_nodes
+    args = (tables.nodes, thr1, thr2, tables.offsets, tables.entries, noise_u16, int(noise_u16 is None),
+            seed & 0xFFFFFFFF, noise_scale / 65536.0)
+    if node_chunk is None:
+        WSWEEP.launch(*args, words, b, w, n, num_sweeps)
+        return words
+    cols = words.t().contiguous()
+    WSWEEP_CHUNKED.launch(*args, cols, b, w, n, num_sweeps, node_chunk)
+    return cols.t().contiguous()
 
 
 def _sweep(bits, tables, num_sweeps, noise_scale, noise_u16, seed, node_chunk):
@@ -196,18 +237,15 @@ def _sweep(bits, tables, num_sweeps, noise_scale, noise_u16, seed, node_chunk):
     words = pack_bits(bits)
     if not words.is_cuda:
         return unpack_bits(_wsweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed), n)
-    w = num_words(n)
-    check_cuda_tensor(tables.planes, "planes", torch.int32, (num_sweep_planes(tables.k, tables.signed), n, w))
     check_cuda_tensor(tables.nodes, "nodes", torch.int32, (n,))
+    check_cuda_tensor(tables.offsets, "offsets", torch.int32, (n + 1,))
+    check_cuda_tensor(tables.entries, "entries", torch.int32, (tables.entries.shape[0], 2))
+    if tables.entries.data_ptr() % 16:
+        raise ValueError("entries must be 16-byte aligned (the kernel reads two entries at a time)")
     thr1, thr2 = _noisy_thresholds(tables, noise_scale)
     if noise_u16 is not None:
         check_cuda_tensor(noise_u16, "noise_u16", torch.int32, (num_sweeps * n, b))
-    args = (tables.nodes, thr1, thr2, tables.planes, tables.k, int(tables.signed), noise_u16,
-            int(noise_u16 is None), seed & 0xFFFFFFFF, noise_scale / 65536.0, words, b, w, n, num_sweeps)
-    if node_chunk is None:
-        WSWEEP.launch(*args)
-    else:
-        WSWEEP_CHUNKED.launch(*args, node_chunk)
+    words = launch_sweep(tables, words, thr1, thr2, noise_u16, seed, noise_scale, num_sweeps, node_chunk)
     return unpack_bits(words, n)
 
 
@@ -221,7 +259,7 @@ def mcpg_sweep_weighted(
 ) -> torch.Tensor:
     """Injected-noise sweeps. noise_u16: int32 in [0, 65536) of shape
     [num_sweeps * N, B]; bits: bool [B, N] -> bool [B, N]. `node_chunk`
-    (rows staged at a time) selects K7 over K6."""
+    (list entries staged at a time) selects K7 over K6."""
     return _sweep(bits, tables, num_sweeps, noise_scale, noise_u16, 0, node_chunk)
 
 

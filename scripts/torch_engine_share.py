@@ -1,24 +1,33 @@
-"""Time the in-place bit-plane kernels of the PyTorch/CUDA port against the
-node-chunked ones, and the chunked ones at several chunk sizes: the numbers
-behind `SWEEP_L2_SHARE`, `FLIP_L2_SHARE` and `MAX_CHUNK` in
-rlsolver_tpu_torch/ops/kernels/engine.py.
+"""Time the integer-weight sweep kernels of the PyTorch/CUDA port across
+graph sizes: the numbers behind `K6_MIN_TILES_PER_SM`, `LIST_STAGE_ENTRIES`,
+`FLIP_L2_SHARE` and `MAX_CHUNK` in rlsolver_tpu_torch/ops/kernels/engine.py.
 
-    python3 scripts/torch_engine_share.py [--chains 33792] [--sizes 2000,4000,...]
-                                          [--chunks 1,2,4,8,16,32]
+    python3 scripts/torch_engine_share.py [--chains 24576,262144] [--sizes 2000,4000,...]
+                                          [--edges-per-node 1,10] [--stages 128,256,1024,4096]
+                                          [--chunks 1,2,4,8,16,32] [--no-flip]
 
-Needs one CUDA card. For each N, a seeded G(N, 10N) graph with weights in
-+-{1..7} (3 signed planes, as the W22-like and W70-like stand-ins) is swept
-on the card by the in-place kernels and the node-chunked ones with the
-engine's chunk: K6 against K7 (two fused sweeps, so the first sweep's
-earlier plane and a later sweep are both in the time) and K8a against K8b
-(one 1-flip sweep), each timed with CUDA events after a warm-up launch, in
-the order in-place, chunked, chunked, in-place. Then K7 and K8b at each
-chunk of `--chunks` whose two stages fit beside 32 chains (a warm-up launch,
-then the mean of two). One JSON line per size gives the tables' bytes as a
-share of the card's L2 and the times; the last line gives, for each pair,
-the in-place over chunked ratios, the largest share at which the in-place
-kernel was faster, the largest at which it was less than CLIFF_RATIO times
-slower, and the fastest chunk at each size.
+Needs one CUDA card. For each N and edge density, a seeded G(N, m) graph
+with weights in +-{1..7} (3 signed planes, as the W22-like and W70-like
+stand-ins; W22-like has 10 edges per node, W70-like 1) is swept on the card.
+
+The noisy sweep, at each chain count of `--chains`: K6 (a block's chains in
+shared memory) against K7 (chains in device memory, chain-minor; the
+transposes in and out counted in its time) at the engine's stage, two fused
+sweeps each (the first sweep and a later one), after a check that the two
+give the same bits; each timed with CUDA events after a warm-up launch, in
+the order K6, K7, K7, K6; then K7 at each stage of `--stages` (a warm-up
+launch, then the mean of two). The chains are random words, made on the
+card.
+
+The 1-flip sweep, at the first chain count and 10 edges per node: K8a (the
+bit-planes read in place) against K8b (rows staged) at the engine's chunk,
+then K8b at each chunk of `--chunks` whose two stages fit beside 32 chains.
+
+One JSON line per size; the last line gives, for each (edges per node,
+chains), K6 over K7 by K6's tiles per SM and the fewest tiles per SM from
+which K6 was faster at every size, the fastest stage at each size, and for
+the 1-flip pair the in-place over chunked ratios, the largest share of L2 at
+which K8a was under CLIFF_RATIO times K8b's time, and the fastest chunk.
 """
 
 from __future__ import annotations
@@ -65,71 +74,119 @@ def mean_ms(fn, runs: int = 2) -> float:
 
 
 def stages_fit(n: int, n_planes: int, chunk: int) -> bool:
-    """Whether two stages of `chunk` rows fit beside the smallest tile (32
-    chains) that the chunked kernels accept."""
+    """Whether two K8b stages of `chunk` rows fit beside the smallest tile
+    (32 chains) that the chunked kernels accept."""
     w = codec.num_words(n)
     return 32 * (w | 1) * 4 + 2 * n_planes * chunk * w * 4 <= build.header_constant("kMaxSmem")
 
 
+def random_words(b: int, n: int, gen) -> torch.Tensor:
+    """Random chains [b, W] made on the card (no [b, n] bools: 2^20 chains of
+    10000 nodes would take 10 GB)."""
+    w = codec.num_words(n)
+    words = torch.randint(-2**31, 2**31, (b, w), generator=gen, device="cuda", dtype=torch.int64).to(torch.int32)
+    if n % 32:
+        words[:, -1] &= (1 << (n % 32)) - 1
+    return words
+
+
+def sweep_rows(args, l2, gen):
+    rows = []
+    stages = [int(x) for x in args.stages.split(",")]
+    for per_node in (int(x) for x in args.edges_per_node.split(",")):
+        for n in (int(x) for x in args.sizes.split(",")):
+            g = build_weighted_gnm(n, per_node * n, n, f"W{n}")
+            tab = wsw.WeightedSweepTables.build(g, "cuda")
+            thr1, thr2 = sw._noisy_thresholds(tab, 0.25)
+            for b in (int(x) for x in args.chains.split(",")):
+                w0 = random_words(b, n, gen)
+
+                def run(words, stage):
+                    return wsw.launch_sweep(tab, words, thr1, thr2, None, 7, 0.25, 2, stage)
+
+                if not torch.equal(run(w0.clone(), None), run(w0.clone(), engine.LIST_STAGE_ENTRIES)):
+                    raise AssertionError(f"N={n}, {b} chains: K6 and K7 differ")
+                words = w0.clone()
+                k6, k7 = alternate(lambda: run(words, None), lambda: run(words, engine.LIST_STAGE_ENTRIES))
+                by_stage = {s: mean_ms(lambda: run(words, s)) for s in stages}
+                row = dict(n=n, edges=g.num_edges, list_entries=tab.entries.shape[0], chains=b,
+                           k6_tiles_per_sm=engine.k6_tiles_per_sm(n), chain_bytes=b * codec.num_words(n) * 4,
+                           chain_share_of_l2=b * codec.num_words(n) * 4 / l2, k6_ms=k6, k7_ms=k7,
+                           k7_ms_by_stage=by_stage)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                del w0, words
+            del tab
+    return rows
+
+
+def flip_rows(args, l2, gen):
+    rows = []
+    b = int(args.chains.split(",")[0])
+    for n in (int(x) for x in args.sizes.split(",")):
+        g = build_weighted_gnm(n, 10 * n, n, f"W{n}")
+        w = codec.num_words(n)
+        adj = wsw.WeightedAdjPlanes.build(g, "cuda")
+        p_flip = adj.planes.shape[0]
+        c_flip = engine.pick_node_chunk(n, p_flip)
+        words = random_words(b, n, gen)
+        flip = (adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
+        k8a, k8b = alternate(lambda: wsw.WSWEEP_1FLIP.launch(*flip),
+                             lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c_flip))
+        chunks = [c for c in (int(x) for x in args.chunks.split(",")) if c <= n]
+        k8b_by_chunk = {c: mean_ms(lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c))
+                        for c in chunks if stages_fit(n, p_flip, c)}
+        row = dict(n=n, words=w, chains=b, flip_table_bytes=adj.planes.numel() * 4,
+                   flip_share=adj.planes.numel() * 4 / l2, chunk_flip=c_flip, k8a_ms=k8a, k8b_ms=k8b,
+                   k8b_ms_by_chunk=k8b_by_chunk)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del adj, words
+    return rows
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--chains", type=int, default=132 * 256)
+    p.add_argument("--chains", default="24576,262144")
     p.add_argument("--sizes", default="2000,3000,4000,5000,6000,7000,8000,10000")
+    p.add_argument("--edges-per-node", default="1,10")
+    p.add_argument("--stages", default="128,256,1024,4096")
     p.add_argument("--chunks", default="1,2,4,8,16,32")
+    p.add_argument("--no-flip", action="store_true", help="skip the 1-flip pair")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_engine_share: no CUDA device", file=sys.stderr)
         return 2
-    dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     build.build_all(["weighted_sweep.cu"])
-    l2 = engine.l2_bytes(dev)
-    gen = torch.Generator(device=dev)
+    l2 = engine.l2_bytes("cuda")
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = []
-    for n in (int(x) for x in args.sizes.split(",")):
-        g = build_weighted_gnm(n, 10 * n, n, f"W{n}")
-        w, b = codec.num_words(n), args.chains
-        tab = wsw.WeightedSweepTables.build(g, dev)
-        adj = wsw.WeightedAdjPlanes.build(g, dev)
-        p_sweep, p_flip = tab.planes.shape[0], adj.planes.shape[0]
-        c_sweep, c_flip = engine.pick_node_chunk(n, p_sweep), engine.pick_node_chunk(n, p_flip)
-        words = codec.pack_bits(torch.rand(b, n, generator=gen, device=dev) < 0.5)
-        thr1, thr2 = sw._noisy_thresholds(tab, 0.25)
-        sweep = (tab.nodes, thr1, thr2, tab.planes, tab.k, int(tab.signed), None, 1, 7, 0.25 / 65536.0,
-                 words, b, w, n, 2)
-        flip = (adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
-        k6, k7 = alternate(lambda: wsw.WSWEEP.launch(*sweep), lambda: wsw.WSWEEP_CHUNKED.launch(*sweep, c_sweep))
-        k8a, k8b = alternate(lambda: wsw.WSWEEP_1FLIP.launch(*flip),
-                             lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c_flip))
-        chunks = [c for c in (int(x) for x in args.chunks.split(",")) if c <= n]
-        k7_by_chunk = {c: mean_ms(lambda: wsw.WSWEEP_CHUNKED.launch(*sweep, c))
-                       for c in chunks if stages_fit(n, p_sweep, c)}
-        k8b_by_chunk = {c: mean_ms(lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c))
-                        for c in chunks if stages_fit(n, p_flip, c)}
-        row = dict(n=n, words=w, chains=b, sweep_table_bytes=tab.planes.numel() * 4,
-                   sweep_share=tab.planes.numel() * 4 / l2, chunk_sweep=c_sweep, k6_ms=k6, k7_ms=k7,
-                   flip_table_bytes=adj.planes.numel() * 4, flip_share=adj.planes.numel() * 4 / l2,
-                   chunk_flip=c_flip, k8a_ms=k8a, k8b_ms=k8b, k7_ms_by_chunk=k7_by_chunk,
-                   k8b_ms_by_chunk=k8b_by_chunk)
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-        del tab, adj, words
+    sweeps = sweep_rows(args, l2, gen)
+    flips = [] if args.no_flip else flip_rows(args, l2, gen)
 
-    def up_to(shares):
-        return max(shares) if shares else None
-
-    def compare(share_key, in_place, chunked, by_chunk):
-        ratios = [(r[share_key], r[in_place] / r[chunked]) for r in rows]
-        return dict(ratios=ratios, in_place_faster_up_to_share=up_to([s for s, q in ratios if q < 1.0]),
-                    below_cliff_up_to_share=up_to([s for s, q in ratios if q < CLIFF_RATIO]),
-                    fastest_chunk={r["n"]: min(r[by_chunk], key=r[by_chunk].get) for r in rows if r[by_chunk]})
-
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, "l2_bytes": l2, "chains": args.chains,
-                      "sweep_k6_over_k7": compare("sweep_share", "k6_ms", "k7_ms", "k7_ms_by_chunk"),
-                      "flip_k8a_over_k8b": compare("flip_share", "k8a_ms", "k8b_ms", "k8b_ms_by_chunk")}))
+    summary = {}
+    for r in sweeps:
+        summary.setdefault(f"{r['edges'] // r['n']} edges/node, {r['chains']} chains", []).append(r)
+    k6_over_k7 = {}
+    for key, rs in summary.items():
+        faster = [r["k6_tiles_per_sm"] for r in rs if r["k6_ms"] <= r["k7_ms"]]
+        k6_wins_from = min((t for t in sorted(set(faster))
+                            if all(r["k6_ms"] <= r["k7_ms"] for r in rs if r["k6_tiles_per_sm"] >= t)), default=None)
+        k6_over_k7[key] = dict(by_n={r["n"]: (r["k6_tiles_per_sm"], r["k6_ms"] / r["k7_ms"]) for r in rs},
+                               k6_faster_from_tiles_per_sm=k6_wins_from,
+                               fastest_stage={r["n"]: min(r["k7_ms_by_stage"], key=r["k7_ms_by_stage"].get)
+                                              for r in rs})
+    out = {"device": torch.cuda.get_device_name(0), "smi": smi, "l2_bytes": l2, "sweep_k6_over_k7": k6_over_k7}
+    if flips:
+        ratios = [(r["flip_share"], r["k8a_ms"] / r["k8b_ms"]) for r in flips]
+        out["flip_k8a_over_k8b"] = dict(
+            ratios=ratios, below_cliff_up_to_share=max([s for s, q in ratios if q < CLIFF_RATIO], default=None),
+            fastest_chunk={r["n"]: min(r["k8b_ms_by_chunk"], key=r["k8b_ms_by_chunk"].get)
+                           for r in flips if r["k8b_ms_by_chunk"]})
+    print(json.dumps(out))
     return 0
 
 

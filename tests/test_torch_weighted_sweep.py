@@ -168,35 +168,56 @@ def test_fused_k6_equals_fused_k4_on_a_pm1_graph():
 
 
 def test_engine_choices_with_the_h100_l2():
-    """The engine's three-way choice on the smoke run's graphs, from sizes
-    alone: G22-like K4/K5, W22-like K6/K8a (3.5 MB of tables), W70-like
-    K7/K8b (87.6 MB and 75.1 MB, above the 50 MB L2's 80% and 70%)."""
+    """The engine's choices on the smoke run's graphs, from sizes alone:
+    G22-like K4/K5; W22-like K6 (a tile of 128 chains of 63 words, 32 KB,
+    leaves 7 tiles per SM) and K8a (3.0 MB of 1-flip planes); W70-like K7
+    (a tile of 313 words leaves one per SM) with the engine's list stage,
+    and K8b (75.1 MB of planes, above 70% of the 50 MB L2)."""
     l2 = engine.H100_L2_BYTES
     g22, w22, w70 = build_g22_like(), build_w22_like(), build_w70_like()
     assert engine.plan_sweep(g22, l2) == (False, None)
     assert engine.plan_1flip(g22, l2) == (False, None)
     assert twsw.weight_planes(w22) == (3, True) == twsw.weight_planes(w70)
-    assert twsw.num_sweep_planes(3, True) * 2000 * 63 * 4 == 3_528_000
+    assert 128 * (63 | 1) * 4 == 32_256 and engine.k6_tiles_per_sm(2000) == 7
     assert engine.plan_sweep(w22, l2) == (True, None)
     assert engine.plan_1flip(w22, l2) == (True, None)
-    assert twsw.num_sweep_planes(3, True) * 10000 * 313 * 4 == 87_640_000
-    assert engine.plan_sweep(w70, l2) == (True, 4)
+    assert 128 * (313 | 1) * 4 == 160_256 and engine.k6_tiles_per_sm(10000) == 1
+    assert engine.plan_sweep(w70, l2) == (True, engine.LIST_STAGE_ENTRIES)
+    assert 6 * 10000 * 313 * 4 == 75_120_000 > engine.FLIP_L2_SHARE * l2
     assert engine.plan_1flip(w70, l2) == (True, 4)
     # unit weights at G70's size: K4's 37.6 MB of tables fit (the JAX package
     # streamed them through K7, for VMEM), and K5's 12.5 MB
     g70 = Graph.from_edge_list(10000, [(a, b, 1.0) for a, b in gnm_edges(10000, 9999, seed=70)], "G70like")
     assert engine.plan_sweep(g70, l2) == (False, None) == engine.plan_1flip(g70, l2)
-    # a chunk of 4 rows of 7 planes, double-buffered, leaves room for 128 chains
+    # K7's two stages of list entries fit a block's shared memory; K8b's
+    # chunk of 4 rows of 6 planes, double-buffered, leaves room for 128 chains
     assert build.header_constant("kChainsPerBlock") == 128
-    assert 128 * 313 * 4 + 2 * 4 * 7 * 313 * 4 <= build.header_constant("kMaxSmem") == 227 * 1024
+    assert 2 * engine.LIST_STAGE_ENTRIES * 8 <= build.header_constant("kMaxSmem") == 227 * 1024
+    assert 128 * 313 * 4 + 2 * 4 * 6 * 313 * 4 <= build.header_constant("kMaxSmem")
     assert engine.l2_bytes("cpu") == l2
+    # weights that no packed kernel takes raise, whatever the size
+    bad = Graph.from_edge_list(3, [(0, 1, 0.5), (1, 2, 1.0)], "half")
+    with pytest.raises(ValueError, match="integer"):
+        engine.plan_sweep(bad, l2)
 
 
-# (N, planes, chunk): the chunk with the most blocks per SM, then the
-# largest, as scripts/torch_engine_share.py measured it on the H100 (7 sweep
-# planes and 6 1-flip planes of a 3-bit signed graph)
-@pytest.mark.parametrize("n, planes, chunk", [(2000, 7, 1), (4000, 6, 2), (5000, 7, 4), (6000, 6, 2),
-                                              (7000, 7, 8), (8000, 7, 7), (10000, 7, 4), (10000, 6, 4)])
+# (N, tiles per SM, plan): K6 while its chain tile leaves K6_MIN_TILES_PER_SM
+# tiles per SM, K7 beyond, on a 3-bit signed graph of each size
+@pytest.mark.parametrize("n, tiles, k7", [(2000, 7, False), (3000, 4, False), (3500, 4, False), (4000, 3, True),
+                                          (5000, 2, True), (7000, 2, True), (8000, 1, True), (10000, 1, True),
+                                          (60000, 0, True)])
+def test_k6_runs_while_its_tile_leaves_enough_per_sm(n, tiles, k7):
+    assert engine.k6_tiles_per_sm(n) == tiles
+    g = Graph.from_edge_list(n, [(0, 1, 3.0), (1, 2, -5.0)], f"path{n}")
+    assert engine.plan_sweep(g, engine.H100_L2_BYTES) == (True, engine.LIST_STAGE_ENTRIES if k7 else None)
+
+
+# (N, planes, chunk): K8b's chunk, the one with the most blocks per SM, then
+# the largest (6 planes: a 3-bit signed graph; 3: 3-bit unsigned; 2: 1-bit
+# signed); scripts/torch_engine_share.py times K8b at each chunk on the H100
+@pytest.mark.parametrize("n, planes, chunk", [(2000, 6, 1), (4000, 6, 2), (5000, 6, 4), (6000, 6, 2),
+                                              (7000, 6, 8), (8000, 6, 8), (10000, 6, 4), (10000, 3, 8),
+                                              (10000, 2, 8)])
 def test_node_chunk_keeps_the_most_blocks_per_sm(n, planes, chunk):
     assert engine.pick_node_chunk(n, planes) == chunk
 
