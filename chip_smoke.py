@@ -12,6 +12,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                sweep), K6/K8a on W22-like and K7/K8b on W70-like (the plain
                sweep on 2048 chains and 2 sweeps, the 1-flip sweeps on the
                warm starts' 2048 and 768 chains, also against the f32 sweep);
+               K4 in both modes on Hub3000's topology with unit and +-1
+               weights (a hub's list of many words, isolated nodes' empty
+               lists); K8b, forced, on Hub3000 and on a 10,000-node path (a
+               level schedule of 10,000 levels) against the sequential plain
+               sweep and the f32 sweep, each schedule's depth printed;
                fused K6 equals fused K7 (a small forced stage on W22-like,
                the engine's on W70-like's 24,576 chains) and, on G22-like
                with random +-1 signs, fused K4; on a hub graph with isolated
@@ -39,10 +44,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                the engine must pick K6 and K8a, and K3, K6, K8a must launch;
   6. w70     — MCPG `--fast` on W70-like (10000 nodes, 9999 edges, the same
                weights) with the gset_70 preset cut to 768 x 32 chains and 2
-               rounds: the engine must pick K7 and K8b, and K3, K7, K8b must
-               launch;
+               rounds: the engine must pick K7 and K8b (its warm start's
+               1-flip sweep), and K3, K7, K8b must launch;
   7. profile — device time by kernel of one --fast round on G22-like,
-               W22-like and W70-like (torch.profiler);
+               W22-like and W70-like, and of the W70-like solve's warm
+               start (its local-search rounds end in K8b; torch.profiler);
   8. l2a     — `solve_maxcut_l2a` on G22-like at the default widths of
                L2AConfig (256 sims x 8 repeats, top_k 16, 2 searchers, 4
                multi-flip iterations, embed 64, 4 heads, 2 encoder layers,
@@ -53,15 +59,16 @@ Phases (each prints its seconds; any failure exits non-zero):
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
  10. time    — kernel, plain-version and bound times at each path's shapes
-               (K7's with its transposes); a bit-plane sweep's bound counts
-               the popcounts its tables' non-zero words need and, per warp
-               and step, reads of those words and of the distinct chain
-               words they meet; K6's and K7's bound is the least of that
-               and the neighbour-list reckoning (a bit extract and a
-               multiply-add per neighbour, reads of the distinct neighbour
-               words and of the list); K10's counts the f32 updates its
-               accepted flips need; `dense_bound_ms` (every word; K10: every
-               rank-1 update) beside it.
+               (K7's with its transposes), and K6 on G22-like's own lists
+               beside K4; a bit-plane sweep's bound counts the popcounts its
+               tables' non-zero words need and, per warp and step, reads of
+               those words and of the distinct chain words they meet; K6's,
+               K7's and K8b's bound is the least of that and the
+               neighbour-list reckoning (a bit extract and a multiply-add per
+               neighbour, reads of the distinct neighbour words and of the
+               list); K10's counts the f32 updates its accepted flips need;
+               `dense_bound_ms` (every word; K10: every rank-1 update) beside
+               it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -78,6 +85,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -131,6 +139,16 @@ def build_hub_graph():
             pairs.add((a, b))
     w = rng.integers(1, 8, size=len(pairs)) * rng.choice((-1, 1), size=len(pairs))
     return Graph.from_edge_list(3000, [(a, b, float(x)) for (a, b), x in zip(sorted(pairs), w)], name="Hub3000")
+
+
+def build_path_graph(n: int = 10000):
+    """The path 0 - 1 - ... - (n-1) with weights in +-{1..7}: node i's level
+    is i, so K8b's schedule is n levels of one node."""
+    import numpy as np
+    from rlsolver_tpu_torch.core.graph import Graph
+    rng = np.random.default_rng(10)
+    w = rng.integers(1, 8, size=n - 1) * rng.choice((-1, 1), size=n - 1)
+    return Graph.from_edge_list(n, [(i, i + 1, float(x)) for i, x in enumerate(w)], name=f"Path{n}")
 
 
 def phase(name, t0):
@@ -288,6 +306,8 @@ def main() -> int:
     adj = sw.pack_adjacency(g, dev)
     thr = mh.fused_thresholds(probs)
     errs = {}
+    B70 = W70_CHAINS * W70_REPEATS  # the W70-like path's chains
+    B_PLAIN_W = 2048  # the plain weighted sweeps' chains in the checks (S * N Python steps)
 
     def proposal_stream():
         """K2's int32 [ROUNDS, B] stream, 16 rounds of random bits at a time."""
@@ -323,6 +343,28 @@ def main() -> int:
     require_equal(f"K4 mcpg_sweep_fused (first {B_PLAIN_SWEEP} of {B} chains)", out[:B_PLAIN_SWEEP], plain,
                   errs, "mcpg_sweep")
 
+    # K4 on a unit hub with isolated nodes (Hub3000's topology): a step with
+    # a list of many words, steps with none; unit and +-1 weights
+    hub = build_hub_graph()
+    for name_h, w_h in (("Hub3000unit", np.ones_like(hub.weights)), ("Hub3000pm1", np.sign(hub.weights))):
+        g_h = Graph(hub.num_nodes, hub.edges, w_h.astype("float32"), name_h)
+        t_h, n_h = sw.PackedSweepTables.build(g_h, dev), g_h.num_nodes
+        lens = (t_h.word_offsets[1:] - t_h.word_offsets[:-1]).long()
+        print(f"  {name_h}: N={n_h}, word lists of {float(lens.float().mean()):.1f} words on average, the largest "
+              f"{int(lens.max())} of {codec.num_words(n_h)}, {int((lens == 0).sum())} empty", flush=True)
+        sub_h = torch.rand(B_PLAIN_W, n_h, generator=gen, device=dev) < 0.5
+        noise_h = torch.randint(0, 65536, (2 * n_h, B_PLAIN_W), generator=gen, device=dev, dtype=torch.int32)
+        plain = codec.unpack_bits(sw._sweep_plain(t_h, codec.pack_bits(sub_h), n_h, 2, 0.25, noise_h, 0), n_h)
+        require_equal(f"K4 mcpg_sweep_packed on {name_h} (injected noise)",
+                      sw.mcpg_sweep_packed(noise_h, sub_h, t_h, num_sweeps=2), plain, errs, "mcpg_sweep")
+        bits_h = torch.rand(B70, n_h, generator=gen, device=dev) < 0.5
+        out = sw.mcpg_sweep_fused(31, bits_h, t_h, num_sweeps=3)
+        plain = codec.unpack_bits(sw._sweep_plain(t_h, codec.pack_bits(bits_h[:B_PLAIN_W]), n_h, 3, 0.25, None, 31),
+                                  n_h)
+        require_equal(f"K4 mcpg_sweep_fused on {name_h} (first {B_PLAIN_W} of {B70} chains, 3 sweeps)",
+                      out[:B_PLAIN_W], plain, errs, "mcpg_sweep")
+    del t_h, sub_h, noise_h, bits_h
+
     warm = bits[:B_WARM].contiguous()
     out = sw.sweep_1flip_packed(warm, adj)
     require_equal("K5 sweep_1flip_packed", out, sw._sweep_1flip_plain(warm, adj), errs, "sweep_1flip")
@@ -336,9 +378,8 @@ def main() -> int:
     w22, w70 = build_w22_like(), build_w70_like()
     l2 = engine.l2_bytes(dev)
     chunk70 = engine.plan_sweep(w70, l2).node_chunk
-    flip_chunk70 = engine.plan_1flip(w70, l2).node_chunk
-    B70 = W70_CHAINS * W70_REPEATS  # the W70-like path's chains
-    B_PLAIN_W = 2048  # the plain sweep's chains in the checks (S * N Python steps)
+    if not engine.plan_1flip(w70, l2).levels:
+        raise AssertionError("the engine should take K8b on W70-like")
     for gw, chunk, name in ((w22, None, "K6"), (w70, chunk70, "K7")):
         nw, tw = gw.num_nodes, wsw.WeightedSweepTables.build(gw, dev)
         sub = torch.rand(B_PLAIN_W, nw, generator=gen, device=dev) < 0.5
@@ -364,7 +405,6 @@ def main() -> int:
                   wsw.mcpg_sweep_weighted_fused(99, bits70, tw70, num_sweeps=2), errs, "mcpg_sweep_weighted_chunked")
     del tw70, bits70
     # a hub whose list spans several stages, nodes with empty lists
-    hub = build_hub_graph()
     th = wsw.WeightedSweepTables.build(hub, dev)
     degs = (th.offsets[1:] - th.offsets[:-1]).long()
     print(f"  {hub.name}: N={hub.num_nodes}, largest list {int(degs.max())} entries, {int((degs == 0).sum())} empty "
@@ -391,18 +431,25 @@ def main() -> int:
                   wsw.mcpg_sweep_weighted_fused(5, bits, wsw.WeightedSweepTables.build(g_pm, dev), num_sweeps=S),
                   sw.mcpg_sweep_fused(5, bits, sw.PackedSweepTables.build(g_pm, dev), num_sweeps=S), errs,
                   "mcpg_sweep_weighted")
-    for gw, chunk, b_warm, name in ((w22, None, B_WARM, "K8a"), (w70, flip_chunk70, W70_CHAINS, "K8b")):
+    # K8a on W22-like; K8b on W70-like (the engine's choice), and forced on
+    # Hub3000 and a 10,000-node path (a schedule of 10,000 levels)
+    path = build_path_graph()
+    for gw, levels, b_warm, name in ((w22, False, B_WARM, "K8a"), (w70, True, W70_CHAINS, "K8b"),
+                                     (hub, True, W70_CHAINS, "K8b"), (path, True, W70_CHAINS, "K8b")):
         aw = wsw.WeightedAdjPlanes.build(gw, dev)
+        print(f"  {gw.name}: N={gw.num_nodes}, {aw.entries.shape[0]} list entries, a level schedule of depth "
+              f"{aw.depth}", flush=True)
         warm_w = torch.rand(b_warm, gw.num_nodes, generator=gen, device=dev) < 0.5
-        out = wsw.sweep_1flip_weighted(warm_w, aw, node_chunk=chunk)
-        key = "sweep_1flip_weighted" + ("_chunked" if chunk else "")
-        require_equal(f"{name} on {gw.name} (chunk {chunk})", out, wsw._sweep_1flip_plain(warm_w, aw), errs, key)
+        out = wsw.sweep_1flip_weighted(warm_w, aw, levels=levels)
+        key = "sweep_1flip_weighted" + ("_levels" if levels else "")
+        require_equal(f"{name} on {gw.name} vs the sequential plain sweep", out, wsw._sweep_1flip_plain(warm_w, aw),
+                      errs, key)
         env_w = MaxcutEnv(gw, dev)
         f32_bits, f32_vs = env_w.sweep_1flip(warm_w, env_w.obj(warm_w))
-        require_equal(f"{name} vs the f32 incremental-gain sweep", out, f32_bits, errs, key)
+        require_equal(f"{name} on {gw.name} vs the f32 incremental-gain sweep", out, f32_bits, errs, key)
         if not torch.equal(env_w.obj(out), f32_vs):
             raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
-        del env_w
+        del env_w, aw
 
     # K10 at L2A's shapes (256 sims x 8 repeats), on integer and real weights
     B_L2A = l2a.L2AConfig().num_sims * l2a.L2AConfig().num_repeats
@@ -506,13 +553,13 @@ def main() -> int:
 
     # 5, 6. MCPG --fast on the weighted stand-ins ------------------------------
     SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
-              "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_chunked")
+              "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
     weighted_counts, weighted_cfgs = {}, {}
     for gw, cfg_w, sweep_k, flip_k in (
         (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted", "sweep_1flip_weighted"),
         (w70, dataclasses.replace(GSET_PRESETS_40G["gset_70"], repeat_times=W70_REPEATS, sampler="fused",
                                   sweep_mode="packed", max_epoch_num=1, reset_epoch_num=16, seed=0),
-         "mcpg_sweep_weighted_chunked", "sweep_1flip_weighted_chunked"),
+         "mcpg_sweep_weighted_chunked", "sweep_1flip_weighted_levels"),
     ):
         t0 = time.time()
         sweep_eng, flip_eng = engine.plan_sweep(gw, l2), engine.plan_1flip(gw, l2)
@@ -565,6 +612,20 @@ def main() -> int:
     cfg70 = weighted_cfgs["W70like"]
     profile_round(w70, cfg70, torch.rand(cfg70.total_mcmc_num * cfg70.repeat_times, w70.num_nodes, generator=gen,
                                          device=dev) < 0.5)
+    # the W70-like solve's warm start, as solve_maxcut_mcpg runs it: local
+    # search rounds on C chains, each ending in a 1-flip sweep (K8b)
+    env70 = MaxcutEnv(w70, dev, packed_sweep=True)
+    xs70 = env70.random_xs(gen, cfg70.total_mcmc_num)
+
+    def warm_start():
+        xs, vs = xs70, env70.obj(xs70)
+        for _ in range(cfg70.warmup_ls_rounds):
+            xs, vs = env70.local_search(gen, xs, vs)
+
+    warm_start()
+    profile_device(f"the W70like solve's warm start ({cfg70.warmup_ls_rounds} local-search rounds on "
+                   f"{cfg70.total_mcmc_num} chains)", warm_start)
+    del env70, xs70
     phase("profile", t0)
 
     # 8. L2A on G22-like at the default widths ------------------------------
@@ -661,6 +722,10 @@ def main() -> int:
     k4_work = scan_work(B, S, (nonzero(k4_first), nonzero(k4_later)), (first_w, later_w),
                         (plane_reads(k4_first), plane_reads(k4_later)))
     k4_steps = B * n * S * (STEP_OPS + PHILOX_OPS // 4)
+    # K6 on G22-like's own neighbour lists (k = 1 plane), the same sweeps: a
+    # yardstick for K4 (K6 gives K4's bits)
+    tw_g22 = wsw.WeightedSweepTables.build(g, dev)
+    t1_g22, t2_g22 = sw._noisy_thresholds(tw_g22, 0.25)
     k5_planes = torch.stack([adj.pos] + ([adj.neg] if adj.neg is not None else []))
     k5_work = scan_work(B_WARM, 1, (nonzero(k5_planes), 0), (k5_planes.numel(), 0), (plane_reads(k5_planes), 0))
     rows = [
@@ -673,11 +738,14 @@ def main() -> int:
              plain=lambda: mh.mh_fused_plain(12345, thr, words, n, ROUNDS), plain_chains=B, reps=10,
              bytes=word_bytes + thr.numel() * 4, step_ops=ROUNDS * B * K3_OPS),
         dict(name="mcpg_sweep", kernel=sw.MCPG_SWEEP, launches=fast_counts["mcpg_sweep"],
-             run=lambda: sw.MCPG_SWEEP.launch(tables.nodes, thr1, thr2, tables.masks, 0, None, 1, 777,
-                                              0.25 / 65536.0, words, B, w, n, S),
+             run=lambda: sw.MCPG_SWEEP.launch(tables.nodes, thr1, thr2, tables.word_offsets, tables.word_entries, 0,
+                                              None, 1, 777, 0.25 / 65536.0, words, B, w, n, S),
              plain=lambda: sw._sweep_plain(tables, words[:B_PLAIN_SWEEP], n, S, 0.25, None, 777),
              plain_chains=B_PLAIN_SWEEP, reps=2,
-             bytes=word_bytes + tables.masks.numel() * 4 + 3 * n * 4, work=k4_work, step_ops=k4_steps),
+             bytes=word_bytes + (tables.word_entries.numel() + tables.word_offsets.numel() + 3 * n) * 4, work=k4_work,
+             step_ops=k4_steps,
+             yardstick=("k6_on_the_same_graph_ms",
+                        lambda: wsw.launch_sweep(tw_g22, words, t1_g22, t2_g22, None, 777, 0.25, S, None))),
         dict(name="sweep_1flip", kernel=sw.SWEEP_1FLIP, launches=fast_counts["sweep_1flip"],
              run=lambda: sw.SWEEP_1FLIP.launch(adj.pos, None, adj.deg_pos, None, warm_words, B_WARM, w, n),
              plain=lambda: sw._sweep_1flip_plain(warm, adj), plain_chains=B_WARM, reps=10,
@@ -709,16 +777,26 @@ def main() -> int:
                     bytes=2 * bb * ww * 4 + tab.planes.numel() * 4 + 3 * nn * 4, work=work, list_work=list_work,
                     step_ops=steps)
 
-    def weighted_flip_row(name, kernel, aw, bits_w, chunk, launches, reps):
+    def weighted_flip_row(name, kernel, aw, bits_w, levels, launches, reps):
+        """K8a (bit-planes) or K8b (lists in the level schedule); K8b's bound
+        is the least of the bit-plane reckoning and the neighbour-list one
+        (a bit extract and a multiply-add per neighbour, a step's own work,
+        the list's bytes and reads)."""
         nn, bb = aw.num_nodes, bits_w.shape[0]
         ww = codec.num_words(nn)
         wds = codec.pack_bits(bits_w)
         work = scan_work(bb, 1, (nonzero(aw.planes), 0), (aw.planes.numel(), 0), (plane_reads(aw.planes), 0))
-        extra = [chunk] if chunk else []
-        return dict(name=name, kernel=kernel, launches=launches,
-                    run=lambda: kernel.launch(aw.planes, aw.wdeg, aw.k, int(aw.signed), wds, bb, ww, nn, *extra),
-                    plain=lambda: wsw._sweep_1flip_plain(bits_w, aw), plain_chains=bb, reps=reps,
-                    bytes=2 * bb * ww * 4 + aw.planes.numel() * 4 + nn * 4, work=work, step_ops=bb * nn * STEP_OPS)
+        row = dict(name=name, kernel=kernel, launches=launches,
+                   run=lambda: kernel.launch(aw.planes, aw.wdeg, aw.k, int(aw.signed), wds, bb, ww, nn),
+                   plain=lambda: wsw._sweep_1flip_plain(bits_w, aw), plain_chains=bb, reps=reps,
+                   bytes=2 * bb * ww * 4 + aw.planes.numel() * 4 + nn * 4, work=work, step_ops=bb * nn * STEP_OPS)
+        if levels:
+            tabs = (aw.offsets, aw.entries, aw.level_nodes, aw.level_offsets, aw.wdeg)
+            row["run"] = lambda: kernel.launch(*tabs, wds, bb, ww, aw.depth)
+            row["list_work"] = (2 * bb * ww * 4 + sum(t.numel() for t in tabs) * 4,
+                                NBR_INT_OPS * bb * aw.entries.shape[0] + bb * nn * STEP_OPS,
+                                -(-bb // 32) * list_reads(aw.offsets, aw.entries))
+        return row
 
     c22, c70 = weighted_counts["W22like"], weighted_counts["W70like"]
     n70 = w70.num_nodes
@@ -728,12 +806,12 @@ def main() -> int:
                            codec.pack_bits(torch.rand(B70, n70, generator=gen, device=dev) < 0.5), chunk70,
                            c70["mcpg_sweep_weighted_chunked"]),
         weighted_flip_row("sweep_1flip_weighted", wsw.WSWEEP_1FLIP, wsw.WeightedAdjPlanes.build(w22, dev),
-                          torch.rand(B_WARM, n, generator=gen, device=dev) < 0.5, None,
+                          torch.rand(B_WARM, n, generator=gen, device=dev) < 0.5, False,
                           c22["sweep_1flip_weighted"], 10),
-        weighted_flip_row("sweep_1flip_weighted_chunked", wsw.WSWEEP_1FLIP_CHUNKED,
+        weighted_flip_row("sweep_1flip_weighted_levels", wsw.WSWEEP_1FLIP_LEVELS,
                           wsw.WeightedAdjPlanes.build(w70, dev),
-                          torch.rand(W70_CHAINS, n70, generator=gen, device=dev) < 0.5, flip_chunk70,
-                          c70["sweep_1flip_weighted_chunked"], 3),
+                          torch.rand(W70_CHAINS, n70, generator=gen, device=dev) < 0.5, True,
+                          c70["sweep_1flip_weighted_levels"], 10),
     ]
     # K10 on the G22-like check's chains: each timed launch first restores
     # the input state (timed alone and taken off)
@@ -809,6 +887,10 @@ def main() -> int:
                   f"{row['l2_row_bytes'] / ms / 1e9:.3f} TB/s")
         if "plain_sweeps" in row:
             kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
+        if "yardstick" in row:
+            key, fn = row["yardstick"]
+            kernels[-1][key] = cuda_ms(fn, row["reps"])
+            print(f"  {row['name']}: {ms:.3f} ms beside {key} {kernels[-1][key]:.3f} ms")
         print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; dense bound "
               f"{kernels[-1].get('dense_bound_ms', bound_ms):.3f} ms); "
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)

@@ -79,6 +79,13 @@ __device__ __forceinline__ uint32_t sweep_u16(bool prng, uint4& d, int t, long l
   return static_cast<uint32_t>(__ldg(noise + (long long)t * B + chain));
 }
 
+// The noisy sweep's bit: nbr + u16 * scale < thr, rounded as the f32
+// multiply-then-add of the plain version and of JAX (the library builds
+// with -fmad=false, and nbr is an exact integer).
+__device__ __forceinline__ bool sweep_decide(int nbr, uint32_t u16, float scale, float thr) {
+  return __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), scale)) < thr;
+}
+
 __device__ __forceinline__ void set_bit(uint32_t* my, int node, bool v) {
   const uint32_t m = 1u << (node & 31);
   my[node >> 5] = v ? (my[node >> 5] | m) : (my[node >> 5] & ~m);

@@ -17,74 +17,87 @@
 // K5, per node i in ascending order: gain = wdeg_i - 2 cut_i from popcounts
 // of the adjacency row(s); the bit flips when the gain is > 0.
 //
-// What bounds it on an H100: every step ANDs and popcounts all W words of
-// every chain against a mask row (W = 63 at N = 2000), so at 10^6 chains one
-// sweep is ~1.3e11 word operations; popcount issues at a quarter of the
-// integer rate, and each word also costs a shared-memory read of the chain
-// word and a broadcast read of the mask word. Device memory is not the
-// limit: the chains are read and written once per call, and the mask tables
-// (3 or 6 x N x W words, 1.5 MB at N = 2000) are the same for every chain, so
-// they stay in L2 and L1 and each warp reads a mask word as one broadcast.
-// The function needs less: a popcount only where a mask word is non-zero
-// (27% of a row's words on the G22-like graph), which is what chip_smoke.py's
-// bound counts. Scanning every word keeps the kernel simple; a list of each
-// row's non-zero words would skip the rest. As in the MH kernel, one thread runs one chain and a block keeps its 128
-// chains in shared memory for all steps.
+// What bounds K4 on an H100: the popcounts the data needs, one per chain
+// per non-zero mask word (17.1 of a row's 63 words on the G22-like graph,
+// at most 30), at a quarter of the integer rate, and per word a read of the
+// chain word from shared memory. The TPU kernel ANDed and popcounted every
+// word of a row. Here each step walks a list of its row's non-zero words
+// (PackedSweepTables.word_entries): one 16-byte entry {w, m_proc, m_unproc,
+// m_all} per word w (a second one with the negative planes on a signed
+// graph), read with a warp-uniform __ldg, so that no zero word is read or
+// popcounted. Sweep 1 popcounts two masks per entry, later sweeps one. The
+// lists (0.55 MB at G22-like's size) are the same for every chain and stay
+// in L2 and L1. As in the MH kernel, one thread runs one chain and a block
+// keeps its 128 chains in shared memory for all steps, at an odd word
+// stride, so the threads of a warp reading word w hit distinct banks (28
+// warps per SM at W = 63: shared memory bounds the residency). Its time
+// follows its memory instructions, two per word (the entry load and the
+// chain word's shared-memory read), as K6's follows its per neighbour:
+// narrower entry loads in more instructions ran slower (PERF.md).
 #include "common.cuh"
 
 namespace {
 
-template <bool kSigned>
-__device__ __forceinline__ int signed_popcount(const uint32_t* my, const uint32_t* __restrict__ pos,
-                                               const uint32_t* __restrict__ neg, int W) {
-  int p = 0;
-  for (int j = 0; j < W; ++j) {
-    const uint32_t x = my[j];
-    p += __popc(x & __ldg(pos + j));
-    if (kSigned) p -= __popc(x & __ldg(neg + j));
-  }
-  return p;
-}
-
-// masks: [P, N, W] planes, P = 3 (proc, unproc, all) or 6 (each followed by
-// its negative plane). thr1/thr2 already include noise_scale / 2.
-template <bool kSigned, bool kPrng>
-__global__ void mcpg_sweep_kernel(const int32_t* __restrict__ nodes, const float* __restrict__ thr1,
-                                  const float* __restrict__ thr2, const uint32_t* __restrict__ masks,
-                                  const int32_t* __restrict__ noise, uint32_t seed, float scale,
-                                  uint32_t* __restrict__ words, int B, int W, int N, int S) {
-  extern __shared__ uint32_t sm[];
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, B - b0);
-  rl::load_chains(sm, words, b0, nb, W);
-  if (threadIdx.x < nb) {
-    uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
-    const long long chain = b0 + threadIdx.x;
-    const size_t plane = (size_t)N * W;
-    const int step = kSigned ? 2 : 1;  // plane index stride between kinds
-    const uint32_t* m_proc = masks;
-    const uint32_t* m_unproc = masks + step * plane;
-    const uint32_t* m_all = masks + 2 * step * plane;
-    uint4 d = make_uint4(0u, 0u, 0u, 0u);
-    for (int sk = 0; sk < S * N; ++sk) {
-      const int k = sk < N ? sk : sk % N;
-      const size_t row = (size_t)k * W;
-      int nbr;
-      float thr;
-      if (sk < N) {
-        nbr = signed_popcount<kSigned>(my, m_proc + row, m_proc + plane + row, W) +
-              2 * signed_popcount<kSigned>(my, m_unproc + row, m_unproc + plane + row, W);
-        thr = __ldg(thr1 + k);
-      } else {
-        nbr = signed_popcount<kSigned>(my, m_all + row, m_all + plane + row, W);
-        thr = __ldg(thr2 + k);
-      }
-      const uint32_t u16 = rl::sweep_u16(kPrng, d, sk, chain, seed, noise, B);
-      const float lhs = __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), scale));
-      rl::set_bit(my, __ldg(nodes + k), lhs < thr);
+// One chain's neighbour sum over the word entries [e0, e1) of a step; an
+// entry is Q = 1 (unsigned) or 2 (signed) uint4 {w, m_proc, m_unproc, m_all},
+// the second with the negative planes.
+template <bool kSigned, bool kFirst>
+__device__ __forceinline__ int word_sum(const uint32_t* my, const uint4* __restrict__ entries, int e0, int e1) {
+  constexpr int Q = kSigned ? 2 : 1;
+  int nbr = 0;
+#pragma unroll 4
+  for (int e = e0; e < e1; ++e) {
+    const uint4 q = __ldg(entries + (size_t)e * Q);
+    const uint32_t x = my[q.x];
+    nbr += kFirst ? __popc(x & q.y) + 2 * __popc(x & q.z) : __popc(x & q.w);
+    if (kSigned) {
+      const uint4 r = __ldg(entries + (size_t)e * Q + 1);
+      nbr -= kFirst ? __popc(x & r.y) + 2 * __popc(x & r.z) : __popc(x & r.w);
     }
   }
-  rl::store_chains(sm, words, b0, nb, W);
+  return nbr;
+}
+
+struct WordSweepArgs {
+  const int32_t* nodes;    // [N] node of each step
+  const float* thr1;       // [N] first-sweep thresholds, noise_scale / 2 included
+  const float* thr2;       // [N] later-sweep thresholds
+  const int32_t* offsets;  // [N + 1] start of each step's entries
+  const uint4* entries;    // [E, Q] word entries, 16-byte aligned
+  const int32_t* noise;    // [S * N, B] injected u16, or null with kPrng
+  uint32_t seed;
+  float scale;      // noise_scale / 65536
+  uint32_t* words;  // [B, W] chains, updated in place
+  int B, W, N, S;
+};
+
+template <bool kSigned, bool kFirst, bool kPrng>
+__device__ __forceinline__ void word_sweep(uint32_t* my, int s, const WordSweepArgs& a, uint4& d, long long chain) {
+  const float* thr = kFirst ? a.thr1 : a.thr2;
+  int e1 = __ldg(a.offsets);
+  for (int k = 0; k < a.N; ++k) {
+    const int e0 = e1;
+    e1 = __ldg(a.offsets + k + 1);
+    const int nbr = word_sum<kSigned, kFirst>(my, a.entries, e0, e1);
+    const uint32_t u16 = rl::sweep_u16(kPrng, d, s * a.N + k, chain, a.seed, a.noise, a.B);
+    rl::set_bit(my, __ldg(a.nodes + k), rl::sweep_decide(nbr, u16, a.scale, __ldg(thr + k)));
+  }
+}
+
+template <bool kSigned, bool kPrng>
+__global__ void mcpg_sweep_kernel(const WordSweepArgs a) {
+  extern __shared__ uint32_t sm[];
+  const long long b0 = (long long)blockIdx.x * blockDim.x;
+  const int nb = min((long long)blockDim.x, a.B - b0);
+  rl::load_chains(sm, a.words, b0, nb, a.W);
+  if (threadIdx.x < nb) {
+    uint32_t* my = sm + threadIdx.x * rl::smem_stride(a.W);
+    const long long chain = b0 + threadIdx.x;
+    uint4 d = make_uint4(0u, 0u, 0u, 0u);
+    if (a.S > 0) word_sweep<kSigned, true, kPrng>(my, 0, a, d, chain);
+    for (int s = 1; s < a.S; ++s) word_sweep<kSigned, false, kPrng>(my, s, a, d, chain);
+  }
+  rl::store_chains(sm, a.words, b0, nb, a.W);
 }
 
 template <bool kSigned>
@@ -123,8 +136,9 @@ __global__ void sweep_1flip_kernel(const uint32_t* __restrict__ adj_pos, const u
 
 }  // namespace
 
-extern "C" int mcpg_sweep(const int32_t* nodes, const float* thr1, const float* thr2,
-                          const int32_t* masks, int is_signed, const int32_t* noise, int use_prng,
+// word_offsets [N + 1], word_entries [E, Q, 4] int32 (Q = 2 when is_signed).
+extern "C" int mcpg_sweep(const int32_t* nodes, const float* thr1, const float* thr2, const int32_t* word_offsets,
+                          const int32_t* word_entries, int is_signed, const int32_t* noise, int use_prng,
                           uint32_t seed, float scale, int32_t* words, int B, int W, int N, int S,
                           cudaStream_t st) {
   auto kernel = is_signed ? (use_prng ? mcpg_sweep_kernel<true, true> : mcpg_sweep_kernel<true, false>)
@@ -133,10 +147,9 @@ extern "C" int mcpg_sweep(const int32_t* nodes, const float* thr1, const float* 
   size_t smem;
   cudaError_t e = rl::prepare(kernel, W, &threads, &smem);
   if (e != cudaSuccess) return e;
-  if (B > 0)
-    kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(
-        nodes, thr1, thr2, reinterpret_cast<const uint32_t*>(masks), noise, seed, scale,
-        reinterpret_cast<uint32_t*>(words), B, W, N, S);
+  const WordSweepArgs a{nodes, thr1, thr2, word_offsets, reinterpret_cast<const uint4*>(word_entries),
+                        noise, seed, scale, reinterpret_cast<uint32_t*>(words), B, W, N, S};
+  if (B > 0) kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 

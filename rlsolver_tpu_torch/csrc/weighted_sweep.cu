@@ -1,11 +1,12 @@
 // Integer-weight sweeps: MCPG's noisy degree-ordered sweep on each step's
-// neighbour list, and the greedy 1-flip sweep on signed bit-planes.
+// neighbour list, and the greedy 1-flip sweep on signed bit-planes or on
+// neighbour lists in a level schedule.
 //
 // Replaces rlsolver_tpu/ops/pallas/weighted_sweep.py:
 //   _wsweep_kernel (K6)                 -> wsweep_kernel
 //   _wsweep_chunked_kernel (K7)         -> wsweep_chunked_kernel
 //   _wsweep_1flip_kernel (K8a)          -> wsweep_1flip_kernel
-//   _wsweep_1flip_chunked_kernel (K8b)  -> wsweep_1flip_chunked_kernel
+//   _wsweep_1flip_chunked_kernel (K8b)  -> wsweep_1flip_levels_kernel
 //
 // The sweep (K6, K7). Step k of sweep s sets node nodes[k] (descending
 // degree) of each chain to (nbr + u16 * scale < thr[k]), with
@@ -50,16 +51,34 @@
 // The TPU's chunked kernel reseeded its PRNG per grid cell; here a draw is
 // keyed by (seed, chain, t) whatever the kernel, so K7 gives K6's bits.
 //
-// The 1-flip sweep (K8a, K8b), on the bit-planes of WeightedAdjPlanes:
-// weights |w| < 2^15 split into K <= 15 binary planes, positive and, on a
-// graph with negative weights, negative. Nodes are visited in ascending
-// order with P = sum_b 2^b (pc(x & pos_b) - pc(x & neg_b)),
-// cut = x_i ? wdeg_i - P : P, and a flip when wdeg_i - 2 cut > 0 (wdeg
-// computed once with the planes, as K5's degrees are). One thread runs one
-// chain with the block's chains in shared memory; K8a reads the rows in
-// place through L1/L2 (__ldg), K8b copies `chunk` rows of every plane into
-// shared memory with cp.async, two stages deep. They popcount every word of
-// every plane, most of them zero on sparse graphs (ROADMAP Queue 2).
+// The 1-flip sweep (K8a, K8b) visits nodes in ascending order with
+// P = sum_j w_ij x_j, cut = x_i ? wdeg_i - P : P, and a flip when
+// wdeg_i - 2 cut > 0 (wdeg computed once with the tables, as K5's degrees
+// are).
+//   K8a (wsweep_1flip_kernel), on the bit-planes of WeightedAdjPlanes:
+//   weights |w| < 2^15 split into K <= 15 binary planes, positive and, on a
+//   graph with negative weights, negative, P = sum_b 2^b (pc(x & pos_b) -
+//   pc(x & neg_b)). One thread runs one chain with the block's chains in
+//   shared memory and reads the rows in place through L1/L2 (__ldg). It
+//   popcounts every word of every plane, most of them zero on sparse graphs.
+//   K8b (wsweep_1flip_levels_kernel), on WeightedAdjPlanes' natural-order
+//   neighbour lists {j, w}: the sequential sweep is a chain of N dependent
+//   steps, and one thread per chain left the card idle (W70-like's 768
+//   warm-start chains filled 6 of 132 SMs, each thread walking 10,000
+//   steps while it scanned all 6 x 313 plane words of a row, 550 times the
+//   words the graph's 2 neighbours a node need). Node i's level is
+//   1 + the largest level of its earlier neighbours (0 when it has none):
+//   nodes of one level are never adjacent, earlier neighbours sit in lower
+//   levels and later ones in higher levels, so visiting level by level, the
+//   nodes of a level in any order, gives exactly the sequential sweep's
+//   bits. One warp runs one chain, its words in shared memory, and its
+//   lanes split each level's nodes: W70-like has 8 levels, so its 10,000
+//   dependent steps become 8 rounds of about 1,250 independent nodes, and
+//   768 chains are 768 warps on all SMs. What bounds it is the latency of
+//   each lane's gathers (level_nodes, offsets, the list, the neighbour's
+//   word), with a few warps per SM; the data needs one bit extract and
+//   one multiply-add per neighbour. A deep schedule (a path: D = N) stays
+//   exact and only runs slower.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -67,6 +86,7 @@
 namespace {
 
 constexpr int kMaxPlanes = 15;
+constexpr int kLevelChainsPerBlock = 4;  // K8b: warps (chains) a block
 
 // ---------------------------------------------------------------------------
 // K6 and K7: the noisy sweep on neighbour lists
@@ -115,11 +135,6 @@ __device__ __forceinline__ int tile_sum(const uint32_t* my, const int2* __restri
   return nbr;
 }
 
-// x_node = (nbr + u16 * scale < thr), rounded as the plain version rounds.
-__device__ __forceinline__ bool decide(int nbr, uint32_t u16, float scale, float thr) {
-  return __fadd_rn(static_cast<float>(nbr), __fmul_rn(static_cast<float>(u16), scale)) < thr;
-}
-
 template <bool kFirst>
 __device__ __forceinline__ void tile_sweep(uint32_t* my, int s, const ListSweepArgs& a, uint4& d, long long chain) {
   const float* thr = kFirst ? a.thr1 : a.thr2;
@@ -129,7 +144,7 @@ __device__ __forceinline__ void tile_sweep(uint32_t* my, int s, const ListSweepA
     e1 = __ldg(a.offsets + k + 1);
     const int nbr = tile_sum<kFirst>(my, a.entries, e0, e1);
     const uint32_t u16 = rl::sweep_u16(a.use_prng, d, s * a.N + k, chain, a.seed, a.noise, a.B);
-    rl::set_bit(my, __ldg(a.nodes + k), decide(nbr, u16, a.scale, __ldg(thr + k)));
+    rl::set_bit(my, __ldg(a.nodes + k), rl::sweep_decide(nbr, u16, a.scale, __ldg(thr + k)));
   }
 }
 
@@ -256,7 +271,7 @@ __device__ __forceinline__ void column_sweep(uint32_t* col, bool live, int s, co
     }
     if (live) {
       const uint32_t m = 1u << (node & 31);
-      *own = decide(nbr, u16, a.scale, __ldg(thr + k)) ? (cur | m) : (cur & ~m);
+      *own = rl::sweep_decide(nbr, u16, a.scale, __ldg(thr + k)) ? (cur | m) : (cur & ~m);
     }
   }
 }
@@ -275,22 +290,14 @@ __global__ void wsweep_chunked_kernel(const ListSweepArgs a, int stage) {
 }
 
 // ---------------------------------------------------------------------------
-// K8a and K8b: the greedy 1-flip sweep on bit-planes
-
-template <bool kGlobal>
-__device__ __forceinline__ uint32_t row_word(const uint32_t* p) {
-  if constexpr (kGlobal) {
-    return __ldg(p);
-  } else {
-    return *p;
-  }
-}
+// K8a: the greedy 1-flip sweep on bit-planes
 
 // Signed weighted popcount of one chain against one node's rows. `pos` is
 // the node's row of positive plane 0; positive plane b's row is at
 // pos + b * pstride, negative plane b's at pos + (K + b) * pstride.
-template <int K, bool kSigned, bool kGlobal>
-__device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* pos, size_t pstride, int W) {
+template <int K, bool kSigned>
+__device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* __restrict__ pos, size_t pstride,
+                                            int W) {
   int acc[K];
 #pragma unroll
   for (int b = 0; b < K; ++b) acc[b] = 0;
@@ -298,8 +305,8 @@ __device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* 
     const uint32_t x = my[j];
 #pragma unroll
     for (int b = 0; b < K; ++b) {
-      acc[b] += __popc(x & row_word<kGlobal>(pos + b * pstride + j));
-      if (kSigned) acc[b] -= __popc(x & row_word<kGlobal>(pos + (K + b) * pstride + j));
+      acc[b] += __popc(x & __ldg(pos + b * pstride + j));
+      if (kSigned) acc[b] -= __popc(x & __ldg(pos + (K + b) * pstride + j));
     }
   }
   int s = 0;
@@ -308,27 +315,11 @@ __device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* 
   return s;
 }
 
-// One greedy 1-flip step at node i; `pos` as in weighted_sum.
-template <int K, bool kSigned, bool kGlobal>
-__device__ __forceinline__ void flip_step(uint32_t* my, int i, const uint32_t* pos, size_t pstride, int W,
-                                          int wdeg) {
-  const int p = weighted_sum<K, kSigned, kGlobal>(my, pos, pstride, W);
-  const uint32_t cur = (my[i >> 5] >> (i & 31)) & 1u;
-  const int cut = cur ? wdeg - p : p;  // weight to the other side
-  if (wdeg - 2 * cut > 0) my[i >> 5] ^= 1u << (i & 31);  // strict improvement
-}
-
-// Starts the asynchronous copy of rows [c0, c0 + rows) of planes [0, P)
-// into a stage laid out [P, chunk, W], as one committed batch.
-__device__ __forceinline__ void stage_rows(uint32_t* stage, const uint32_t* __restrict__ planes, int P, int N, int W,
-                                           int c0, int rows, int chunk) {
-  const int per_plane = rows * W;
-  for (int i = threadIdx.x; i < P * per_plane; i += blockDim.x) {
-    const int p = i / per_plane, r = i - p * per_plane;
-    __pipeline_memcpy_async(stage + (size_t)p * chunk * W + r, planes + ((size_t)p * N + c0) * W + r,
-                            sizeof(uint32_t));
-  }
-  __pipeline_commit();
+// Whether node i of a chain flips: p = sum_j w_ij x_j, cut = x_i ? wdeg - p
+// : p (the weight to the other side), strict improvement wdeg - 2 cut > 0.
+__device__ __forceinline__ bool flips(const uint32_t* my, int i, int p, int wdeg) {
+  const int cut = bit_of(my[i >> 5], i) ? wdeg - p : p;
+  return wdeg - 2 * cut > 0;
 }
 
 struct FlipArgs {
@@ -347,46 +338,12 @@ __global__ void wsweep_1flip_kernel(const FlipArgs a) {
   if (threadIdx.x < nb) {
     uint32_t* my = sm + threadIdx.x * rl::smem_stride(a.W);
     const size_t pstride = (size_t)a.N * a.W;
-    for (int i = 0; i < a.N; ++i)
-      flip_step<K, kSigned, true>(my, i, a.planes + (size_t)i * a.W, pstride, a.W, __ldg(a.wdeg + i));
+    for (int i = 0; i < a.N; ++i) {
+      const int p = weighted_sum<K, kSigned>(my, a.planes + (size_t)i * a.W, pstride, a.W);
+      if (flips(my, i, p, __ldg(a.wdeg + i))) my[i >> 5] ^= 1u << (i & 31);
+    }
   }
   rl::store_chains(sm, a.words, b0, nb, a.W);
-}
-
-template <int K, bool kSigned>
-__global__ void wsweep_1flip_chunked_kernel(const FlipArgs a, int chunk) {
-  constexpr int P = (kSigned ? 2 : 1) * K;
-  extern __shared__ uint32_t sm[];
-  const int W = a.W, N = a.N;
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, a.B - b0);
-  uint32_t* stages = sm + (size_t)blockDim.x * rl::smem_stride(W);
-  const size_t stage_words = (size_t)P * chunk * W, pstride = (size_t)chunk * W;
-  const int nchunks = (N + chunk - 1) / chunk;
-  auto fetch = [&](int g) {
-    const int c0 = g * chunk;
-    stage_rows(stages + (g & 1) * stage_words, a.planes, P, N, W, c0, min(chunk, N - c0), chunk);
-  };
-  fetch(0);
-  rl::load_chains(sm, a.words, b0, nb, W);
-  uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
-  for (int g = 0; g < nchunks; ++g) {
-    if (g + 1 < nchunks) {
-      fetch(g + 1);  // into the stage that chunk g - 1 used
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // chunk g is in shared memory for every thread
-    if (threadIdx.x < nb) {
-      const uint32_t* st = stages + (g & 1) * stage_words;
-      const int c0 = g * chunk, rows = min(chunk, N - c0);
-      for (int r = 0; r < rows; ++r)
-        flip_step<K, kSigned, false>(my, c0 + r, st + r * W, pstride, W, __ldg(a.wdeg + c0 + r));
-    }
-    __syncthreads();  // every thread is done with chunk g's stage
-  }
-  rl::store_chains(sm, a.words, b0, nb, W);
 }
 
 // One instantiation per plane count K = 1..15 and sign, picked at launch.
@@ -398,25 +355,64 @@ __global__ void wsweep_1flip_chunked_kernel(const FlipArgs a, int chunk) {
   }
 
 using FlipFn = void (*)(FlipArgs);
-using FlipChunkedFn = void (*)(FlipArgs, int);
 
 const FlipFn kFlip[2][kMaxPlanes] = {RL_BY_K(wsweep_1flip_kernel, false), RL_BY_K(wsweep_1flip_kernel, true)};
-const FlipChunkedFn kFlipChunked[2][kMaxPlanes] = {RL_BY_K(wsweep_1flip_chunked_kernel, false),
-                                                   RL_BY_K(wsweep_1flip_chunked_kernel, true)};
 
-template <typename Fn>
-Fn by_planes(const Fn (&table)[2][kMaxPlanes], int k, int is_signed) {
-  return (k >= 1 && k <= kMaxPlanes) ? table[is_signed ? 1 : 0][k - 1] : nullptr;
+// ---------------------------------------------------------------------------
+// K8b: the greedy 1-flip sweep on neighbour lists, in a level schedule
+
+struct LevelArgs {
+  const int32_t* offsets;        // [N + 1] start of each node's list
+  const int2* entries;           // [E] {j, w}, ascending j within a list
+  const int32_t* level_nodes;    // [N] node ids sorted by (level, id)
+  const int32_t* level_offsets;  // [D + 1] start of each level in level_nodes
+  const int32_t* wdeg;           // [N] integer weighted degrees
+  uint32_t* words;               // [B, W] chains, updated in place
+  int B, W, D;
+};
+
+// One warp per chain, kFlipChainsPerBlock chains a block in shared memory.
+// The lanes split each level's nodes; a flip is an atomicXor on the shared
+// word, which other lanes of the level may be flipping other bits of. Nodes
+// of a level are never adjacent, so no bit that a lane reads changes during
+// the level; __syncwarp orders one level's flips before the next's reads.
+__global__ void wsweep_1flip_levels_kernel(const LevelArgs a) {
+  extern __shared__ uint32_t sm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_block = blockDim.x >> 5;
+  const long long b0 = (long long)blockIdx.x * per_block;
+  const int nb = min((long long)per_block, a.B - b0);
+  rl::load_chains(sm, a.words, b0, nb, a.W);
+  if (warp < nb) {
+    uint32_t* my = sm + warp * rl::smem_stride(a.W);
+    int v1 = __ldg(a.level_offsets);
+    for (int lv = 0; lv < a.D; ++lv) {
+      const int v0 = v1;
+      v1 = __ldg(a.level_offsets + lv + 1);
+      for (int v = v0 + lane; v < v1; v += 32) {
+        const int i = __ldg(a.level_nodes + v);
+        const int e1 = __ldg(a.offsets + i + 1);
+        int p = 0;
+        for (int e = __ldg(a.offsets + i); e < e1; ++e) {
+          const int2 q = __ldg(a.entries + e);
+          p += bit_of(my[q.x >> 5], q.x) * q.y;
+        }
+        if (flips(my, i, p, __ldg(a.wdeg + i))) atomicXor(my + (i >> 5), 1u << (i & 31));
+      }
+      __syncwarp();
+    }
+  }
+  rl::store_chains(sm, a.words, b0, nb, a.W);
 }
 
-// Launches kernel(args..., [chunk]) over ceil(B / threads) blocks of the
-// largest chain tile that fits beside `extra` bytes of stages.
+// Launches kernel(args...) over ceil(B / threads) blocks of the largest
+// chain tile that fits.
 template <typename Fn, typename... Args>
-cudaError_t launch(Fn kernel, int B, int W, size_t extra, cudaStream_t st, Args... args) {
+cudaError_t launch(Fn kernel, int B, int W, cudaStream_t st, Args... args) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
   int threads;
   size_t smem;
-  cudaError_t e = rl::prepare(kernel, W, &threads, &smem, extra);
+  cudaError_t e = rl::prepare(kernel, W, &threads, &smem);
   if (e != cudaSuccess) return e;
   if (B > 0) kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(args...);
   return cudaGetLastError();
@@ -436,7 +432,7 @@ extern "C" int wsweep(const int32_t* nodes, const float* thr1, const float* thr2
                       int32_t* words, int B, int W, int N, int S, cudaStream_t st) {
   const ListSweepArgs a = list_args(nodes, thr1, thr2, offsets, entries, noise, use_prng, seed, scale, words, B, W,
                                     N, S);
-  return launch(wsweep_kernel, B, W, 0, st, a);
+  return launch(wsweep_kernel, B, W, st, a);
 }
 
 // words: [W, B], chain-minor. One thread per chain in blocks of
@@ -462,14 +458,26 @@ extern "C" int wsweep_chunked(const int32_t* nodes, const float* thr1, const flo
 extern "C" int wsweep_1flip(const int32_t* planes, const int32_t* wdeg, int k, int is_signed, int32_t* words,
                             int B, int W, int N, cudaStream_t st) {
   const FlipArgs a{reinterpret_cast<const uint32_t*>(planes), wdeg, reinterpret_cast<uint32_t*>(words), B, W, N};
-  return launch(by_planes(kFlip, k, is_signed), B, W, 0, st, a);
+  const FlipFn kernel = (k >= 1 && k <= kMaxPlanes) ? kFlip[is_signed ? 1 : 0][k - 1] : nullptr;
+  return launch(kernel, B, W, st, a);
 }
 
-extern "C" int wsweep_1flip_chunked(const int32_t* planes, const int32_t* wdeg, int k, int is_signed,
-                                    int32_t* words, int B, int W, int N, int chunk, cudaStream_t st) {
-  if (chunk < 1) return cudaErrorInvalidValue;
-  chunk = min(chunk, N);
-  const FlipArgs a{reinterpret_cast<const uint32_t*>(planes), wdeg, reinterpret_cast<uint32_t*>(words), B, W, N};
-  const size_t stages = 2 * (size_t)((is_signed ? 2 : 1) * k) * chunk * W * sizeof(uint32_t);
-  return launch(by_planes(kFlipChunked, k, is_signed), B, W, stages, st, a, chunk);
+// entries [E, 2] int32 {j, w}, 8-byte aligned. Blocks of kLevelChainsPerBlock
+// warps, one chain each (fewer when their words do not fit).
+extern "C" int wsweep_1flip_levels(const int32_t* offsets, const int32_t* entries, const int32_t* level_nodes,
+                                   const int32_t* level_offsets, const int32_t* wdeg, int32_t* words, int B, int W,
+                                   int D, cudaStream_t st) {
+  int chains = kLevelChainsPerBlock;
+  size_t smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t);
+  for (; chains > 1 && smem > rl::kMaxSmem; smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t)) chains /= 2;
+  if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(wsweep_1flip_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const LevelArgs a{offsets, reinterpret_cast<const int2*>(entries), level_nodes, level_offsets, wdeg,
+                    reinterpret_cast<uint32_t*>(words), B, W, D};
+  if (B > 0) wsweep_1flip_levels_kernel<<<(B + chains - 1) / chains, 32 * chains, smem, st>>>(a);
+  return cudaGetLastError();
 }

@@ -19,15 +19,11 @@ to 14% faster at 24,576 chains but K7 was 1.2-1.5 times faster at 262,144,
 and at 1 tile K7 was faster everywhere.
 
 The 1-flip sweep: K5 when the weights allow it and its tables fit, else the
-bit-plane kernels with the tables read in place (K8a) when their bytes fit
-`FLIP_L2_SHARE` of L2, else node-chunked (K8b). That
-share is not a speed rule: `scripts/torch_engine_share.py` found K8a slower
-than K8b at every size it measured (PERF.md), and the share keeps K8a on the
-path the three-way order gives it, off tables past the L2 cliff (the
-largest measured share at which K8a took under twice K8b's time). K8b's
-chunk is measured too: a block holds a tile of 128 chains and two stages of
-`chunk` rows of every plane, and the fastest chunk at each size was the
-largest of those that let the most blocks share an SM.
+bit-plane kernel K8a with its planes read in place while their bytes fit
+`FLIP_L2_SHARE` of L2, else K8b, which reads each node's neighbour list in
+a level schedule and no planes at all. The share keeps K8a off planes past
+the L2 cliff; whether K8a's tier remains now that K8b walks lists is what
+`scripts/torch_engine_share.py` times across sizes (PERF.md).
 
 The rule reads only sizes and the weights, so `plan_sweep` and `plan_1flip`
 can be asked about a graph without building its tables.
@@ -60,9 +56,6 @@ LIST_STAGE_ENTRIES = 128
 # shared memory per SM, of which the runtime keeps 1 KB per resident block.
 H100_SMEM_PER_SM = 233_472
 H100_SMEM_RESERVED_PER_BLOCK = 1_024
-# Rows per K8b stage at most: beyond 8, with as many blocks per SM, a stage
-# gained under 1% (PERF.md).
-MAX_CHUNK = 8
 
 
 def l2_bytes(device) -> int:
@@ -86,29 +79,15 @@ def k6_tiles_per_sm(n: int) -> int:
     return _blocks_per_sm(_tile_bytes(n)) if _tile_bytes(n) <= build.header_constant("kMaxSmem") else 0
 
 
-def pick_node_chunk(n: int, n_planes: int) -> int:
-    """Rows per stage of K8b. Of the chunks whose two stages of
-    [n_planes, chunk, W] words fit beside a full tile of chains in a block's
-    shared memory (the limits of csrc/common.cuh), the largest of those that
-    let the most blocks share an SM; 1 when none fits (the kernel then fits
-    fewer chains)."""
-    w = num_words(n)
-    tile = _tile_bytes(n)
-
-    def smem(c):
-        return tile + 2 * n_planes * c * w * 4
-
-    fits = [c for c in range(1, min(n, MAX_CHUNK) + 1) if smem(c) <= build.header_constant("kMaxSmem")]
-    if not fits:
-        return 1
-    return max(fits, key=lambda c: (_blocks_per_sm(smem(c)), c))
-
-
 class Plan(NamedTuple):
-    weighted: bool  # K6-K8 rather than K4/K5
-    # None: K6 or K8a (chains in shared memory, tables read in place); else
-    # K7's list entries per stage, or K8b's rows per stage
+    weighted: bool  # K6/K7 rather than K4
+    # None: K6 (chains in shared memory); else K7's list entries per stage
     node_chunk: Optional[int]
+
+
+class FlipPlan(NamedTuple):
+    weighted: bool  # K8a/K8b rather than K5
+    levels: bool  # K8b (neighbour lists in a level schedule) rather than K8a
 
 
 def _unit_fits(graph: Graph, fit_bytes: float, unit_planes: int) -> bool:
@@ -130,14 +109,13 @@ def plan_sweep(graph: Graph, l2: int) -> Plan:
     return Plan(True, LIST_STAGE_ENTRIES)
 
 
-def plan_1flip(graph: Graph, l2: int) -> Plan:
+def plan_1flip(graph: Graph, l2: int) -> FlipPlan:
     """K5, K8a or K8b for the greedy 1-flip sweep."""
     if _unit_fits(graph, FLIP_L2_SHARE * l2, 1):
-        return Plan(False, None)
+        return FlipPlan(False, False)
     k, signed = wsw.weight_planes(graph)
     n = graph.num_nodes
-    p = k * (2 if signed else 1)
-    return Plan(True, None if p * n * num_words(n) * 4 <= FLIP_L2_SHARE * l2 else pick_node_chunk(n, p))
+    return FlipPlan(True, k * (2 if signed else 1) * n * num_words(n) * 4 > FLIP_L2_SHARE * l2)
 
 
 class FusedSweepEngine(NamedTuple):
@@ -166,16 +144,16 @@ class FlipSweepEngine(NamedTuple):
 
     tables: Union[sw.PackedAdjacency, wsw.WeightedAdjPlanes]
     weighted: bool
-    node_chunk: Optional[int]
+    levels: bool
 
     @staticmethod
     def build(graph: Graph, device=None) -> "FlipSweepEngine":
         dev = resolve_device(device)
-        weighted, chunk = plan_1flip(graph, l2_bytes(dev))
+        weighted, levels = plan_1flip(graph, l2_bytes(dev))
         tables = wsw.WeightedAdjPlanes.build(graph, dev) if weighted else sw.pack_adjacency(graph, dev)
-        return FlipSweepEngine(tables, weighted, chunk)
+        return FlipSweepEngine(tables, weighted, levels)
 
     def sweep(self, bits: torch.Tensor) -> torch.Tensor:
         if self.weighted:
-            return wsw.sweep_1flip_weighted(bits, self.tables, self.node_chunk)
+            return wsw.sweep_1flip_weighted(bits, self.tables, self.levels)
         return sw.sweep_1flip_packed(bits, self.tables)

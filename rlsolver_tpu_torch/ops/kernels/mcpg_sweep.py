@@ -11,6 +11,8 @@ unprocessed ones with 2x - 0.5, so with static masks per step k
 
 and x_i = (nbr + u16 * ns / 65536 < thr[k] + ns / 2). For {0, +-1}-weight
 graphs each mask has a negative-edge plane whose popcount is subtracted.
+`PackedSweepTables` keeps JAX's mask planes and, beside them, each step's
+list of non-zero mask words, which is all that K4 reads.
 
   * `mcpg_sweep_packed` (K4, injected noise [S*N, B]): bit-exact with the
     JAX package's `mcpg_sweep_reference` fed the same noise.
@@ -42,7 +44,7 @@ from rlsolver_tpu_torch.ops.kernels.build import Kernel, check_cuda_tensor, regi
 from rlsolver_tpu_torch.ops.kernels.codec import num_words, pack_bits, unpack_bits
 
 MCPG_SWEEP = register(Kernel(
-    "mcpg_sweep", "mcpg_sweep.cu", "mcpg_sweep", "ppppipiufpiiii",
+    "mcpg_sweep", "mcpg_sweep.cu", "mcpg_sweep", "pppppipiufpiiii",
     replaces="rlsolver_tpu/ops/pallas/mcpg_sweep.py:171 _mcpg_sweep_kernel",
 ))
 SWEEP_1FLIP = register(Kernel(
@@ -70,12 +72,21 @@ class PackedSweepTables(NamedTuple):
     """Static per-instance tables, in sweep (descending-degree) order.
 
     masks [P, N, W] int32 holds the planes m_proc, m_unproc, m_all (P = 3),
-    each followed by its negative-edge plane on a {0, +-1} graph (P = 6)."""
+    each followed by its negative-edge plane on a {0, +-1} graph (P = 6):
+    JAX's planes, word for word. K4 reads only their non-zero words, listed
+    per step: step k's entries are word_entries[word_offsets[k]:
+    word_offsets[k + 1]], one per word index w at which any of the step's
+    planes is non-zero, in ascending w. An entry is Q = 1 (Q = 2 on a
+    signed graph) quad of int32 {w, m_proc[k, w], m_unproc[k, w],
+    m_all[k, w]}, the second quad with the negative planes: 16 or 32 bytes,
+    which a warp reads in one or two aligned loads."""
 
     nodes: torch.Tensor  # [N] int32 node ids in sweep order
     masks: torch.Tensor  # [P, N, W] int32
     thr1: torch.Tensor  # [N] f32 first-sweep thresholds (noise-free)
     thr2: torch.Tensor  # [N] f32 later-sweep thresholds (noise-free)
+    word_offsets: torch.Tensor  # [N + 1] int32
+    word_entries: torch.Tensor  # [E, Q, 4] int32
     signed: bool
 
     @property
@@ -112,21 +123,52 @@ class PackedSweepTables(NamedTuple):
             u_cnt -= mun.sum(axis=1)
             rows = [mp, mpn, mu, mun, ma, man]
         base = graph.weighted_degrees()[order].astype(np.float64) / 2.0
+        masks = torch.stack([_pack_rows(r, device) for r in rows]).contiguous()
+        word_offsets, word_entries = _word_lists(masks, signed)
         return PackedSweepTables(
             nodes=torch.from_numpy(order.astype(np.int32)).to(device),
-            masks=torch.stack([_pack_rows(r, device) for r in rows]).contiguous(),
+            masks=masks,
             thr1=torch.from_numpy((base + 0.5 * u_cnt).astype(np.float32)).to(device),
             thr2=torch.from_numpy(base.astype(np.float32)).to(device),
+            word_offsets=word_offsets,
+            word_entries=word_entries,
             signed=signed,
         )
 
 
+def _word_lists(masks: torch.Tensor, signed: bool):
+    """The CSR of each step's non-zero words, built where `masks` lies."""
+    _, n, w = masks.shape
+    q = 2 if signed else 1
+    by_kind = masks.view(3, q, n, w)  # [m_proc | m_unproc | m_all, sign, step, word]
+    steps, idx = torch.nonzero((masks != 0).any(dim=0), as_tuple=True)  # by step, then ascending word
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=masks.device)
+    offsets[1:] = torch.cumsum(torch.bincount(steps, minlength=n), 0)
+    vals = by_kind[:, :, steps, idx]  # [3, Q, E]
+    entries = torch.cat([idx.to(torch.int32).expand(1, q, -1), vals]).permute(2, 1, 0)
+    return offsets, entries.contiguous()
+
+
+def word_planes(tables: PackedSweepTables) -> torch.Tensor:
+    """The word lists expanded back to mask planes [P, N, W], in the layout
+    of `masks` (what the plain version reads, and the tests compare)."""
+    n, w = tables.num_nodes, num_words(tables.num_nodes)
+    q = 2 if tables.signed else 1
+    off = tables.word_offsets.long()
+    steps = torch.repeat_interleave(torch.arange(n, device=off.device), off[1:] - off[:-1])
+    idx = tables.word_entries[:, 0, 0].long()
+    planes = torch.zeros(3, q, n, w, dtype=torch.int32, device=off.device)
+    planes[:, :, steps, idx] = tables.word_entries[:, :, 1:].permute(2, 1, 0)
+    return planes.reshape(3 * q, n, w)
+
+
 def _sweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed):
-    """Plain version of the K4 kernel on unpacked f32 bits. nbr is linear in
-    x, so each step's popcounts fold into one row of an f32 matrix:
-    C1 = m_proc + 2 m_unproc and C2 = m_all (minus the negative planes)."""
-    m = unpack_bits(tables.masks.reshape(-1, tables.masks.shape[-1]), n)
-    m = m.reshape(tables.masks.shape[0], n, n).to(torch.float32)
+    """Plain version of the K4 kernel on unpacked f32 bits, fed the word
+    lists that K4 reads. nbr is linear in x, so each step's popcounts fold
+    into one row of an f32 matrix: C1 = m_proc + 2 m_unproc and C2 = m_all
+    (minus the negative planes)."""
+    planes = word_planes(tables)
+    m = unpack_bits(planes.reshape(-1, planes.shape[-1]), n).reshape(planes.shape[0], n, n).to(torch.float32)
     if tables.signed:
         m = m[0::2] - m[1::2]
     return sweep_steps_plain(m[0] + 2.0 * m[1], m[2], tables, words, n, num_sweeps, noise_scale, noise_u16, seed)
@@ -170,13 +212,17 @@ def _sweep(bits, tables, num_sweeps, noise_scale, noise_u16, seed):
     if not words.is_cuda:
         return unpack_bits(_sweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed), n)
     w = num_words(n)
-    check_cuda_tensor(tables.masks, "masks", torch.int32, (6 if tables.signed else 3, n, w))
+    q = 2 if tables.signed else 1
+    check_cuda_tensor(tables.word_offsets, "word_offsets", torch.int32, (n + 1,))
+    check_cuda_tensor(tables.word_entries, "word_entries", torch.int32, (tables.word_entries.shape[0], q, 4))
+    if tables.word_entries.data_ptr() % 16:
+        raise ValueError("word_entries must be 16-byte aligned (the kernel reads an entry in one 16-byte load)")
     check_cuda_tensor(tables.nodes, "nodes", torch.int32, (n,))
     thr1, thr2 = _noisy_thresholds(tables, noise_scale)
     if noise_u16 is not None:
         check_cuda_tensor(noise_u16, "noise_u16", torch.int32, (num_sweeps * n, b))
     MCPG_SWEEP.launch(
-        tables.nodes, thr1, thr2, tables.masks, int(tables.signed), noise_u16,
+        tables.nodes, thr1, thr2, tables.word_offsets, tables.word_entries, int(tables.signed), noise_u16,
         int(noise_u16 is None), seed & 0xFFFFFFFF, noise_scale / 65536.0,
         words, b, w, n, num_sweeps,
     )

@@ -25,10 +25,12 @@ list, from which the port's sweeps compute the same integer:
     device memory and the lists staged in shared memory `node_chunk` entries
     at a time. Both give the same bits, and on a {0, +-1} graph K4's bits
     for the same noise or seed.
-  * `sweep_1flip_weighted`: the greedy 1-flip sweep in ascending node order
-    on the bit-planes of `WeightedAdjPlanes`, strict improvements only (K8a,
-    or K8b with `node_chunk` rows staged at a time); bit-exact with the f32
-    incremental-gain sweep of `MaxcutEnv`.
+  * `sweep_1flip_weighted`: the greedy 1-flip sweep in ascending node order,
+    strict improvements only: K8a on the bit-planes of `WeightedAdjPlanes`,
+    or with `levels` K8b on its neighbour lists, level by level of a
+    schedule in which no two nodes of a level are adjacent and every earlier
+    neighbour lies in a lower level, so that the bits are the sequential
+    sweep's; bit-exact with the f32 incremental-gain sweep of `MaxcutEnv`.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/weighted_sweep.cu`);
 on a CPU tensor it runs the plain PyTorch version. The tables' `build`
@@ -62,8 +64,8 @@ WSWEEP_1FLIP = register(Kernel(
     "sweep_1flip_weighted", "weighted_sweep.cu", "wsweep_1flip", "ppiipiii",
     replaces=f"{_WT}:394 _wsweep_1flip_kernel",
 ))
-WSWEEP_1FLIP_CHUNKED = register(Kernel(
-    "sweep_1flip_weighted_chunked", "weighted_sweep.cu", "wsweep_1flip_chunked", "ppiipiiii",
+WSWEEP_1FLIP_LEVELS = register(Kernel(
+    "sweep_1flip_weighted_levels", "weighted_sweep.cu", "wsweep_1flip_levels", "ppppppiii",
     replaces=f"{_WT}:645 _wsweep_1flip_chunked_kernel",
 ))
 
@@ -89,38 +91,43 @@ def weight_planes(graph: Graph) -> Tuple[int, bool]:
     return _max_abs_weight(graph.weights).bit_length(), bool((graph.weights < 0).any())
 
 
-def _integer_weights(graph: Graph, device) -> torch.Tensor:
-    """The adjacency as int32 [N, N] on `device` (built there: at N = 10000
-    numpy's int64 temporaries take seconds per plane)."""
+def _adjacency_entries(graph: Graph, device):
+    """(rows, cols, w) int64 on `device`: every non-zero entry of the integer
+    adjacency, each edge in both directions (no [N, N] matrix is built).
+    ValueError on weights that no packed kernel takes."""
     _max_abs_weight(graph.weights)
     n = graph.num_nodes
     i, j = (torch.from_numpy(graph.edges[:, c].astype(np.int64)).to(device) for c in (0, 1))
-    w = torch.from_numpy(np.rint(graph.weights).astype(np.int32)).to(device)
-    iw = torch.zeros(n, n, dtype=torch.int32, device=device)
-    iw[i, j] = w
-    iw[j, i] = w
-    return iw
+    w = torch.from_numpy(np.rint(graph.weights).astype(np.int64)).to(device)
+    rows, cols, w = torch.cat([i, j]), torch.cat([j, i]), torch.cat([w, w])
+    keep = w != 0
+    return rows[keep], cols[keep], w[keep]
 
 
-def _bit_planes(iw: torch.Tensor) -> Tuple[list, list]:
-    """Signed binary decomposition of an integer matrix's rows: lists of k
-    packed [R, W] planes, positive and (when any entry is < 0) negative."""
-    abs_w = iw.abs()
-    k = int(abs_w.max()).bit_length()
-    bit = [((abs_w >> b) & 1).bool() for b in range(k)]
-    pos = [pack_bits((iw > 0) & m) for m in bit]
-    neg = [pack_bits((iw < 0) & m) for m in bit] if bool((iw < 0).any()) else []
-    return pos, neg
+def _csr(rows, cols, w, n: int):
+    """The entries sorted by (row, col), and the rows' offsets [N + 1]."""
+    order = torch.argsort(rows * n + cols)
+    rows, cols, w = rows[order], cols[order], w[order]
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=rows.device)
+    offsets[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    return rows, cols, w, offsets
 
 
-def _signed_rows(planes: torch.Tensor, k: int, signed: bool, n: int, dtype) -> torch.Tensor:
-    """sum_b 2^b (pos_b - neg_b) over planes [k (+k), R, W] -> [R, n] weights."""
-    out = torch.zeros(planes.shape[1], n, dtype=dtype, device=planes.device)
-    for b in range(k):
-        out += (1 << b) * unpack_bits(planes[b], n).to(dtype)
-        if signed:
-            out -= (1 << b) * unpack_bits(planes[k + b], n).to(dtype)
-    return out
+def _bit_planes(rows, cols, w, n: int, k: int, signed: bool) -> torch.Tensor:
+    """The signed bit-planes [k (+k), N, W] of the entries (rows, cols, w):
+    positive planes b = 0..k-1, then the negative ones on a signed graph,
+    packed as `pack_bits` packs (node j in word j >> 5, bit j & 31). Each bit
+    is set once, so an add of 2^(j & 31) into its word is an OR."""
+    wn = num_words(n)
+    word = rows * wn + (cols >> 5)
+    bit = torch.ones_like(cols) << (cols & 31)
+    planes = []
+    for sign in (1, -1) if signed else (1,):
+        for b in range(k):
+            sel = (torch.sign(w) == sign) & (((w.abs() >> b) & 1) == 1)
+            planes.append(torch.zeros(n * wn, dtype=torch.int64, device=w.device).index_add_(0, word[sel], bit[sel]))
+    p = torch.stack(planes).view(len(planes), n, wn)
+    return torch.where(p >= 1 << 31, p - (1 << 32), p).to(torch.int32)  # the uint32 words as int32
 
 
 class WeightedSweepTables(NamedTuple):
@@ -160,29 +167,27 @@ class WeightedSweepTables(NamedTuple):
     @staticmethod
     def build(graph: Graph, device=None) -> "WeightedSweepTables":
         device = resolve_device(device)
+        k, signed = weight_planes(graph)
         n = graph.num_nodes
         order = graph.degree_sorted_nodes(descending=True).astype(np.int64)
         order_t = torch.from_numpy(order).to(device)
-        a_ord = _integer_weights(graph, device)[order_t]  # [N steps, N node ids]
         pos_of = torch.empty_like(order_t)
         pos_of[order_t] = torch.arange(n, device=device)
-        earlier = pos_of[None, :] < torch.arange(n, device=device)[:, None]
-        u_cnt = (a_ord * ~earlier).sum(dim=1, dtype=torch.int64).cpu().numpy().astype(np.float64)
+        nodes, nbrs, w = _adjacency_entries(graph, device)
+        steps, nbrs, w, offsets = _csr(pos_of[nodes], nbrs, w, n)  # by step, then ascending j
+        early = pos_of[nbrs] < steps  # j precedes step k in sweep order
+        u_cnt = torch.zeros(n, dtype=torch.int64, device=device).index_add_(0, steps, w * ~early)
         wdeg = graph.weighted_degrees()[order].astype(np.float64)
-        pos, neg = _bit_planes(a_ord)
-        steps, nbrs = torch.nonzero(a_ord, as_tuple=True)  # row-major: by step, then ascending j
-        offsets = torch.zeros(n + 1, dtype=torch.int32, device=device)
-        offsets[1:] = torch.cumsum(torch.bincount(steps, minlength=n), 0)
-        meta = a_ord[steps, nbrs] * 2 + earlier[steps, nbrs].to(torch.int32)
+        earlier = pos_of[None, :] < torch.arange(n, device=device)[:, None]
         return WeightedSweepTables(
             nodes=order_t.to(torch.int32),
-            thr1=torch.from_numpy((wdeg / 2.0 + 0.5 * u_cnt).astype(np.float32)).to(device),
+            thr1=torch.from_numpy((wdeg / 2.0 + 0.5 * u_cnt.cpu().numpy()).astype(np.float32)).to(device),
             thr2=torch.from_numpy((wdeg / 2.0).astype(np.float32)).to(device),
-            planes=torch.stack([pack_bits(earlier), *pos, *neg]),
-            offsets=offsets,
-            entries=torch.stack([nbrs.to(torch.int32), meta.to(torch.int32)], dim=1).contiguous(),
-            k=len(pos),
-            signed=bool(neg),
+            planes=torch.cat([pack_bits(earlier)[None], _bit_planes(steps, nbrs, w, n, k, signed)]),
+            offsets=offsets.to(torch.int32),
+            entries=torch.stack([nbrs, w * 2 + early], dim=1).to(torch.int32).contiguous(),
+            k=k,
+            signed=signed,
         )
 
 
@@ -203,7 +208,7 @@ def list_coefficients(tables: WeightedSweepTables, dtype=torch.float32) -> Tuple
 
 def _check_chunk(node_chunk: Optional[int]) -> None:
     if node_chunk is not None and node_chunk < 1:
-        raise ValueError(f"node_chunk must be a positive number of rows, got {node_chunk}")
+        raise ValueError(f"node_chunk must be a positive number of list entries, got {node_chunk}")
 
 
 def _wsweep_plain(tables, words, n, num_sweeps, noise_scale, noise_u16, seed):
@@ -276,19 +281,36 @@ def mcpg_sweep_weighted_fused(
 
 
 class WeightedAdjPlanes(NamedTuple):
-    """Integer adjacency in natural node order as signed bit-planes, for the
-    greedy 1-flip sweep: planes [k (+k), N, W] int32, positive then negative,
-    and the integer weighted degree of every node, computed once here as K5's
-    per-row degrees are, not popcounted again for every chain."""
+    """Integer adjacency in natural node order, for the greedy 1-flip sweep.
+
+    planes [k (+k), N, W] int32: the signed bit-planes, positive then
+    negative, JAX's layout, which K8a reads. offsets [N + 1] and entries
+    [E, 2] int32: node i's neighbours are entries[offsets[i]:offsets[i + 1]],
+    one {j, w_ij} per neighbour, ascending j, which K8b reads with the level
+    schedule: node i's level is 1 + the largest level of its neighbours
+    j < i (0 when it has none); level_nodes [N] holds the node ids sorted by
+    (level, id), and level d's nodes are level_nodes[level_offsets[d]:
+    level_offsets[d + 1]]. wdeg: the integer weighted degree of every node,
+    computed once here as K5's per-row degrees are, not popcounted again
+    for every chain."""
 
     planes: torch.Tensor  # [k or 2k, N, W] int32
     wdeg: torch.Tensor  # [N] int32 sum_j w_ij
+    offsets: torch.Tensor  # [N + 1] int32 CSR row offsets of the lists
+    entries: torch.Tensor  # [E, 2] int32 {j, w}
+    level_nodes: torch.Tensor  # [N] int32
+    level_offsets: torch.Tensor  # [D + 1] int32
     k: int
     signed: bool
 
     @property
     def num_nodes(self) -> int:
         return self.planes.shape[1]
+
+    @property
+    def depth(self) -> int:
+        """D, the number of levels of the schedule."""
+        return self.level_offsets.shape[0] - 1
 
     @property
     def planes_pos(self) -> Tuple[torch.Tensor, ...]:
@@ -300,49 +322,83 @@ class WeightedAdjPlanes(NamedTuple):
 
     @staticmethod
     def build(graph: Graph, device=None) -> "WeightedAdjPlanes":
-        iw = _integer_weights(graph, resolve_device(device))
-        pos, neg = _bit_planes(iw)
+        """Built from the edge list on `device`, with no [N, N] matrix (the
+        schedule on the host: one pass over the nodes in order)."""
+        device = resolve_device(device)
+        k, signed = weight_planes(graph)
+        n = graph.num_nodes
+        rows, cols, w, offsets = _csr(*_adjacency_entries(graph, device), n)
+        level_nodes, level_offsets = level_schedule(offsets.cpu().numpy(), cols.cpu().numpy())
         return WeightedAdjPlanes(
-            planes=torch.stack([*pos, *neg]),
-            wdeg=iw.sum(dim=1, dtype=torch.int32),
-            k=len(pos),
-            signed=bool(neg),
+            planes=_bit_planes(rows, cols, w, n, k, signed),
+            wdeg=torch.zeros(n, dtype=torch.int64, device=device).index_add_(0, rows, w).to(torch.int32),
+            offsets=offsets.to(torch.int32),
+            entries=torch.stack([cols, w], dim=1).to(torch.int32).contiguous(),
+            level_nodes=torch.from_numpy(level_nodes).to(device),
+            level_offsets=torch.from_numpy(level_offsets).to(device),
+            k=k,
+            signed=signed,
         )
 
 
+def level_schedule(offsets: np.ndarray, cols: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(level_nodes [N], level_offsets [D + 1]) int32 of the natural-order
+    lists (offsets [N + 1], neighbour ids ascending within a list): level(i)
+    = 1 + max(level(j) : j < i a neighbour), 0 when there is none."""
+    n = offsets.shape[0] - 1
+    rows = np.repeat(np.arange(n), np.diff(offsets))
+    n_earlier = np.bincount(rows[cols < rows], minlength=n)  # a list's prefix: ascending ids
+    level = np.zeros(n, np.int64)
+    for i in np.flatnonzero(n_earlier):
+        s = offsets[i]
+        level[i] = level[cols[s : s + n_earlier[i]]].max() + 1
+    level_nodes = np.argsort(level, kind="stable")  # by (level, id)
+    level_offsets = np.zeros(int(level.max(initial=0)) + 2, np.int64)
+    level_offsets[1:] = np.cumsum(np.bincount(level))
+    return level_nodes.astype(np.int32), level_offsets.astype(np.int32)
+
+
 def _sweep_1flip_plain(x: torch.Tensor, adj: WeightedAdjPlanes) -> torch.Tensor:
-    """Plain version of K8a/K8b on bool [B, N]: the kernel's integer
-    arithmetic, P = sum_j w_ij x_j (f64, exact for these integers),
-    cut_i = wdeg_i - P if x_i else P, flip when wdeg_i - 2 cut_i > 0."""
+    """Plain version of K8a/K8b on bool [B, N]: the kernels' integer
+    arithmetic in the sequential order, node by node from its list,
+    P = sum_j w_ij x_j (int64), cut_i = wdeg_i - P if x_i else P, flip when
+    wdeg_i - 2 cut_i > 0."""
     n = x.shape[1]
-    a = _signed_rows(adj.planes, adj.k, adj.signed, n, torch.float64)
-    wdeg = adj.wdeg.to(torch.float64)
-    xf = x.to(torch.float64)
+    x = x.clone()
+    off = adj.offsets.tolist()
+    j, w = adj.entries[:, 0].long(), adj.entries[:, 1].long()
+    wdeg = adj.wdeg.long()
     for i in range(n):
-        p = xf @ a[i]
-        cur = xf[:, i] > 0.5
+        s, e = off[i], off[i + 1]
+        p = (x[:, j[s:e]].long() * w[s:e]).sum(dim=1)
+        cur = x[:, i]
         cut = torch.where(cur, wdeg[i] - p, p)
-        xf[:, i] = (cur ^ (wdeg[i] - 2.0 * cut > 0)).to(torch.float64)
-    return xf > 0.5
+        x[:, i] = cur ^ (wdeg[i] - 2 * cut > 0)
+    return x
 
 
-def sweep_1flip_weighted(bits: torch.Tensor, adj: WeightedAdjPlanes,
-                         node_chunk: Optional[int] = None) -> torch.Tensor:
+def sweep_1flip_weighted(bits: torch.Tensor, adj: WeightedAdjPlanes, levels: bool = False) -> torch.Tensor:
     """Greedy sequential 1-flip sweep. bits bool [B, N] -> bool [B, N].
-    `node_chunk` (rows staged at a time) selects K8b over K8a."""
+    K8a on the bit-planes, or with `levels` K8b on the lists in the level
+    schedule; the same bits either way."""
     b, n = bits.shape
     if n != adj.num_nodes:
         raise ValueError(f"bits have {n} nodes, planes built for {adj.num_nodes}")
-    _check_chunk(node_chunk)
     if not bits.is_cuda:
         return _sweep_1flip_plain(bits.bool(), adj)
     w = num_words(n)
     words = pack_bits(bits)
-    check_cuda_tensor(adj.planes, "planes", torch.int32, (adj.k * (2 if adj.signed else 1), n, w))
     check_cuda_tensor(adj.wdeg, "wdeg", torch.int32, (n,))
-    args = (adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
-    if node_chunk is None:
-        WSWEEP_1FLIP.launch(*args)
+    if levels:
+        check_cuda_tensor(adj.offsets, "offsets", torch.int32, (n + 1,))
+        check_cuda_tensor(adj.entries, "entries", torch.int32, (adj.entries.shape[0], 2))
+        check_cuda_tensor(adj.level_nodes, "level_nodes", torch.int32, (n,))
+        check_cuda_tensor(adj.level_offsets, "level_offsets", torch.int32, (adj.depth + 1,))
+        if adj.entries.data_ptr() % 8:
+            raise ValueError("entries must be 8-byte aligned (the kernel reads an entry in one 8-byte load)")
+        WSWEEP_1FLIP_LEVELS.launch(adj.offsets, adj.entries, adj.level_nodes, adj.level_offsets, adj.wdeg, words,
+                                   b, w, adj.depth)
     else:
-        WSWEEP_1FLIP_CHUNKED.launch(*args, node_chunk)
+        check_cuda_tensor(adj.planes, "planes", torch.int32, (adj.k * (2 if adj.signed else 1), n, w))
+        WSWEEP_1FLIP.launch(adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
     return unpack_bits(words, n)

@@ -1,10 +1,10 @@
 """Time the integer-weight sweep kernels of the PyTorch/CUDA port across
-graph sizes: the numbers behind `K6_MIN_TILES_PER_SM`, `LIST_STAGE_ENTRIES`,
-`FLIP_L2_SHARE` and `MAX_CHUNK` in rlsolver_tpu_torch/ops/kernels/engine.py.
+graph sizes: the numbers behind `K6_MIN_TILES_PER_SM`, `LIST_STAGE_ENTRIES`
+and `FLIP_L2_SHARE` in rlsolver_tpu_torch/ops/kernels/engine.py.
 
     python3 scripts/torch_engine_share.py [--chains 24576,262144] [--sizes 2000,4000,...]
                                           [--edges-per-node 1,10] [--stages 128,256,1024,4096]
-                                          [--chunks 1,2,4,8,16,32] [--no-flip]
+                                          [--flip-chains 768,2048] [--no-sweep] [--no-flip]
 
 Needs one CUDA card. For each N and edge density, a seeded G(N, m) graph
 with weights in +-{1..7} (3 signed planes, as the W22-like and W70-like
@@ -19,15 +19,16 @@ the order K6, K7, K7, K6; then K7 at each stage of `--stages` (a warm-up
 launch, then the mean of two). The chains are random words, made on the
 card.
 
-The 1-flip sweep, at the first chain count and 10 edges per node: K8a (the
-bit-planes read in place) against K8b (rows staged) at the engine's chunk,
-then K8b at each chunk of `--chunks` whose two stages fit beside 32 chains.
+The 1-flip sweep, at each chain count of `--flip-chains` and each density:
+K8a (the bit-planes read in place) against K8b (the neighbour lists in the
+level schedule), in the order K8a, K8b, K8b, K8a, after a check that the
+two give the same bits.
 
 One JSON line per size; the last line gives, for each (edges per node,
 chains), K6 over K7 by K6's tiles per SM and the fewest tiles per SM from
 which K6 was faster at every size, the fastest stage at each size, and for
-the 1-flip pair the in-place over chunked ratios, the largest share of L2 at
-which K8a was under CLIFF_RATIO times K8b's time, and the fastest chunk.
+the 1-flip pair K8a over K8b by the planes' share of L2 and the sizes at
+which K8a was the faster.
 """
 
 from __future__ import annotations
@@ -46,9 +47,6 @@ from rlsolver_tpu_torch.core.generate import build_weighted_gnm  # noqa: E402
 from rlsolver_tpu_torch.ops.kernels import build, codec, engine  # noqa: E402
 from rlsolver_tpu_torch.ops.kernels import mcpg_sweep as sw  # noqa: E402
 from rlsolver_tpu_torch.ops.kernels import weighted_sweep as wsw  # noqa: E402
-
-CLIFF_RATIO = 2.0  # in-place over chunked time that marks tables past the L2 cliff
-
 
 def event_ms(fn) -> float:
     torch.cuda.synchronize()
@@ -71,13 +69,6 @@ def alternate(fn_a, fn_b):
 def mean_ms(fn, runs: int = 2) -> float:
     fn()
     return sum(event_ms(fn) for _ in range(runs)) / runs
-
-
-def stages_fit(n: int, n_planes: int, chunk: int) -> bool:
-    """Whether two K8b stages of `chunk` rows fit beside the smallest tile
-    (32 chains) that the chunked kernels accept."""
-    w = codec.num_words(n)
-    return 32 * (w | 1) * 4 + 2 * n_planes * chunk * w * 4 <= build.header_constant("kMaxSmem")
 
 
 def random_words(b: int, n: int, gen) -> torch.Tensor:
@@ -122,26 +113,33 @@ def sweep_rows(args, l2, gen):
 
 def flip_rows(args, l2, gen):
     rows = []
-    b = int(args.chains.split(",")[0])
-    for n in (int(x) for x in args.sizes.split(",")):
-        g = build_weighted_gnm(n, 10 * n, n, f"W{n}")
-        w = codec.num_words(n)
-        adj = wsw.WeightedAdjPlanes.build(g, "cuda")
-        p_flip = adj.planes.shape[0]
-        c_flip = engine.pick_node_chunk(n, p_flip)
-        words = random_words(b, n, gen)
-        flip = (adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
-        k8a, k8b = alternate(lambda: wsw.WSWEEP_1FLIP.launch(*flip),
-                             lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c_flip))
-        chunks = [c for c in (int(x) for x in args.chunks.split(",")) if c <= n]
-        k8b_by_chunk = {c: mean_ms(lambda: wsw.WSWEEP_1FLIP_CHUNKED.launch(*flip, c))
-                        for c in chunks if stages_fit(n, p_flip, c)}
-        row = dict(n=n, words=w, chains=b, flip_table_bytes=adj.planes.numel() * 4,
-                   flip_share=adj.planes.numel() * 4 / l2, chunk_flip=c_flip, k8a_ms=k8a, k8b_ms=k8b,
-                   k8b_ms_by_chunk=k8b_by_chunk)
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-        del adj, words
+    for per_node in (int(x) for x in args.edges_per_node.split(",")):
+        for n in (int(x) for x in args.sizes.split(",")):
+            g = build_weighted_gnm(n, per_node * n, n, f"W{n}")
+            w = codec.num_words(n)
+            adj = wsw.WeightedAdjPlanes.build(g, "cuda")
+            for b in (int(x) for x in args.flip_chains.split(",")):
+                w0 = random_words(b, n, gen)
+
+                def k8a(words):
+                    wsw.WSWEEP_1FLIP.launch(adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
+                    return words
+
+                def k8b(words):
+                    wsw.WSWEEP_1FLIP_LEVELS.launch(adj.offsets, adj.entries, adj.level_nodes, adj.level_offsets,
+                                                   adj.wdeg, words, b, w, adj.depth)
+                    return words
+
+                if not torch.equal(k8a(w0.clone()), k8b(w0.clone())):
+                    raise AssertionError(f"N={n}, {b} chains: K8a and K8b differ")
+                words = w0.clone()
+                ta, tb = alternate(lambda: k8a(words), lambda: k8b(words))
+                row = dict(n=n, edges=g.num_edges, depth=adj.depth, chains=b, flip_table_bytes=adj.planes.numel() * 4,
+                           flip_share=adj.planes.numel() * 4 / l2, k8a_ms=ta, k8b_ms=tb)
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                del w0, words
+            del adj
     return rows
 
 
@@ -151,7 +149,8 @@ def main() -> int:
     p.add_argument("--sizes", default="2000,3000,4000,5000,6000,7000,8000,10000")
     p.add_argument("--edges-per-node", default="1,10")
     p.add_argument("--stages", default="128,256,1024,4096")
-    p.add_argument("--chunks", default="1,2,4,8,16,32")
+    p.add_argument("--flip-chains", default="768,2048")
+    p.add_argument("--no-sweep", action="store_true", help="skip the noisy-sweep pair")
     p.add_argument("--no-flip", action="store_true", help="skip the 1-flip pair")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -164,7 +163,7 @@ def main() -> int:
     l2 = engine.l2_bytes("cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    sweeps = sweep_rows(args, l2, gen)
+    sweeps = [] if args.no_sweep else sweep_rows(args, l2, gen)
     flips = [] if args.no_flip else flip_rows(args, l2, gen)
 
     summary = {}
@@ -181,11 +180,13 @@ def main() -> int:
                                               for r in rs})
     out = {"device": torch.cuda.get_device_name(0), "smi": smi, "l2_bytes": l2, "sweep_k6_over_k7": k6_over_k7}
     if flips:
-        ratios = [(r["flip_share"], r["k8a_ms"] / r["k8b_ms"]) for r in flips]
-        out["flip_k8a_over_k8b"] = dict(
-            ratios=ratios, below_cliff_up_to_share=max([s for s, q in ratios if q < CLIFF_RATIO], default=None),
-            fastest_chunk={r["n"]: min(r["k8b_ms_by_chunk"], key=r["k8b_ms_by_chunk"].get)
-                           for r in flips if r["k8b_ms_by_chunk"]})
+        by = {}
+        for r in flips:
+            by.setdefault(f"{r['edges'] // r['n']} edges/node, {r['chains']} chains", []).append(r)
+        out["flip_k8a_over_k8b"] = {
+            key: dict(by_share={round(r["flip_share"], 4): r["k8a_ms"] / r["k8b_ms"] for r in rs},
+                      k8a_faster_at_n=[r["n"] for r in rs if r["k8a_ms"] < r["k8b_ms"]])
+            for key, rs in by.items()}
     print(json.dumps(out))
     return 0
 

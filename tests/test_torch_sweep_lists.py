@@ -67,6 +67,16 @@ def tables(request):
     return jg, tg, jwsw.WeightedSweepTables.build(jg), twsw.WeightedSweepTables.build(tg, "cpu")
 
 
+def _signed_rows(planes, k, signed, n, dtype):
+    """sum_b 2^b (pos_b - neg_b) over planes [k (+k), R, W] -> [R, n] weights."""
+    out = torch.zeros(planes.shape[1], n, dtype=dtype)
+    for b in range(k):
+        out += (1 << b) * codec.unpack_bits(planes[b], n).to(dtype)
+        if signed:
+            out -= (1 << b) * codec.unpack_bits(planes[k + b], n).to(dtype)
+    return out
+
+
 def _jax_words(planes, w):
     return [np.array(p)[:, :w] for p in planes]
 
@@ -105,7 +115,7 @@ def test_list_coefficients_are_the_first_and_later_sums(tables):
     # C1 = 2A - A*E and C2 = A, as the plain version computed them from the planes
     _, tg, _, tt = tables
     n = tg.num_nodes
-    a = twsw._signed_rows(tt.planes[1:], tt.k, tt.signed, n, torch.float32)
+    a = _signed_rows(tt.planes[1:], tt.k, tt.signed, n, torch.float32)
     e = codec.unpack_bits(tt.earlier, n).to(torch.float32)
     c1, c2 = twsw.list_coefficients(tt)
     assert torch.equal(c2, a)

@@ -3,8 +3,9 @@ and K8b, the engine's choice of kernel, and MCPG `--fast` on integer
 weights. Tables equal JAX's word for word (without the TPU's lane padding,
 which holds only zeros); the sweeps fed JAX's noise are bit-exact with
 `mcpg_sweep_reference` and the Pallas kernels in interpret mode, resident and
-node-chunked; the 1-flip sweeps are bit-exact with the Pallas kernels and
-both packages' f32 sweeps. All sums are integers: every comparison is exact."""
+node-chunked; the 1-flip sweeps (K8a, and K8b against JAX's node-chunked
+kernel) are bit-exact with the Pallas kernels and both packages' f32
+sweeps. All sums are integers: every comparison is exact."""
 
 import os
 import subprocess
@@ -130,8 +131,9 @@ def test_k8_plain_bit_exact_vs_jax(case, node_chunk):
                                        node_chunk=node_chunk if n % 16 == 0 else None, interpret=True)
     jenv = JEnv(jg, dtype=jnp.float32)
     j_bits, _ = jenv.sweep_1flip(jnp.asarray(bits), jenv.obj(jnp.asarray(bits)))
+    # JAX's node-chunked kernel is K8b's TPU counterpart
     out = twsw.sweep_1flip_weighted(torch.from_numpy(bits), twsw.WeightedAdjPlanes.build(tg, "cpu"),
-                                    node_chunk=node_chunk)
+                                    levels=node_chunk is not None)
     np.testing.assert_array_equal(out.numpy(), np.asarray(pallas))
     np.testing.assert_array_equal(out.numpy(), np.asarray(j_bits))
 
@@ -172,33 +174,34 @@ def test_engine_choices_with_the_h100_l2():
     G22-like K4/K5; W22-like K6 (a tile of 128 chains of 63 words, 32 KB,
     leaves 7 tiles per SM) and K8a (3.0 MB of 1-flip planes); W70-like K7
     (a tile of 313 words leaves one per SM) with the engine's list stage,
-    and K8b (75.1 MB of planes, above 70% of the 50 MB L2)."""
+    and K8b (75.1 MB of planes, above 70% of the 50 MB L2), which has no
+    stage: it reads the lists in its level schedule."""
     l2 = engine.H100_L2_BYTES
     g22, w22, w70 = build_g22_like(), build_w22_like(), build_w70_like()
     assert engine.plan_sweep(g22, l2) == (False, None)
-    assert engine.plan_1flip(g22, l2) == (False, None)
+    assert engine.plan_1flip(g22, l2) == (False, False)
     assert twsw.weight_planes(w22) == (3, True) == twsw.weight_planes(w70)
     assert 128 * (63 | 1) * 4 == 32_256 and engine.k6_tiles_per_sm(2000) == 7
     assert engine.plan_sweep(w22, l2) == (True, None)
-    assert engine.plan_1flip(w22, l2) == (True, None)
+    assert engine.plan_1flip(w22, l2) == engine.FlipPlan(weighted=True, levels=False)
     assert 128 * (313 | 1) * 4 == 160_256 and engine.k6_tiles_per_sm(10000) == 1
     assert engine.plan_sweep(w70, l2) == (True, engine.LIST_STAGE_ENTRIES)
     assert 6 * 10000 * 313 * 4 == 75_120_000 > engine.FLIP_L2_SHARE * l2
-    assert engine.plan_1flip(w70, l2) == (True, 4)
+    assert engine.plan_1flip(w70, l2) == engine.FlipPlan(weighted=True, levels=True)
     # unit weights at G70's size: K4's 37.6 MB of tables fit (the JAX package
     # streamed them through K7, for VMEM), and K5's 12.5 MB
     g70 = Graph.from_edge_list(10000, [(a, b, 1.0) for a, b in gnm_edges(10000, 9999, seed=70)], "G70like")
-    assert engine.plan_sweep(g70, l2) == (False, None) == engine.plan_1flip(g70, l2)
-    # K7's two stages of list entries fit a block's shared memory; K8b's
-    # chunk of 4 rows of 6 planes, double-buffered, leaves room for 128 chains
+    assert engine.plan_sweep(g70, l2) == (False, None) and engine.plan_1flip(g70, l2) == (False, False)
+    # K7's two stages of list entries fit a block's shared memory
     assert build.header_constant("kChainsPerBlock") == 128
     assert 2 * engine.LIST_STAGE_ENTRIES * 8 <= build.header_constant("kMaxSmem") == 227 * 1024
-    assert 128 * 313 * 4 + 2 * 4 * 6 * 313 * 4 <= build.header_constant("kMaxSmem")
     assert engine.l2_bytes("cpu") == l2
     # weights that no packed kernel takes raise, whatever the size
     bad = Graph.from_edge_list(3, [(0, 1, 0.5), (1, 2, 1.0)], "half")
     with pytest.raises(ValueError, match="integer"):
         engine.plan_sweep(bad, l2)
+    with pytest.raises(ValueError, match="integer"):
+        engine.plan_1flip(bad, l2)
 
 
 # (N, tiles per SM, plan): K6 while its chain tile leaves K6_MIN_TILES_PER_SM
@@ -212,16 +215,6 @@ def test_k6_runs_while_its_tile_leaves_enough_per_sm(n, tiles, k7):
     assert engine.plan_sweep(g, engine.H100_L2_BYTES) == (True, engine.LIST_STAGE_ENTRIES if k7 else None)
 
 
-# (N, planes, chunk): K8b's chunk, the one with the most blocks per SM, then
-# the largest (6 planes: a 3-bit signed graph; 3: 3-bit unsigned; 2: 1-bit
-# signed); scripts/torch_engine_share.py times K8b at each chunk on the H100
-@pytest.mark.parametrize("n, planes, chunk", [(2000, 6, 1), (4000, 6, 2), (5000, 6, 4), (6000, 6, 2),
-                                              (7000, 6, 8), (8000, 6, 8), (10000, 6, 4), (10000, 3, 8),
-                                              (10000, 2, 8)])
-def test_node_chunk_keeps_the_most_blocks_per_sm(n, planes, chunk):
-    assert engine.pick_node_chunk(n, planes) == chunk
-
-
 def test_engines_build_and_run_on_cpu():
     g = _pair(40, 7, 6, False)[1]
     eng = engine.FusedSweepEngine.build(g, "cpu")
@@ -229,7 +222,8 @@ def test_engines_build_and_run_on_cpu():
     bits = torch.from_numpy(np.random.default_rng(3).random((8, 40)) < 0.5)
     assert torch.equal(eng.sweep(9, bits, 2), twsw.mcpg_sweep_weighted_fused(9, bits, eng.tables, 2))
     flip = engine.FlipSweepEngine.build(g, "cpu")
-    assert flip.weighted and flip.node_chunk is None and isinstance(flip.tables, twsw.WeightedAdjPlanes)
+    assert flip.weighted and not flip.levels and isinstance(flip.tables, twsw.WeightedAdjPlanes)
+    assert torch.equal(flip.sweep(bits), twsw.sweep_1flip_weighted(bits, flip.tables))
     g_pm = _pm1_graph()
     unit, unit_flip = engine.FusedSweepEngine.build(g_pm, "cpu"), engine.FlipSweepEngine.build(g_pm, "cpu")
     assert not unit.weighted and isinstance(unit.tables, tsw.PackedSweepTables)
