@@ -9,23 +9,25 @@ Phases (each prints its seconds; any failure exits non-zero):
                and is held bit for bit against its plain PyTorch version:
                K2-K5 on the G22-like graph (N = 2000; 2^20 chains for the
                sampler and the sweep, 2048 for the warm start's 1-flip
-               sweep), K6/K8a on W22-like and K7/K8b on W70-like (the plain
-               sweep on 2048 chains and 2 sweeps, the 1-flip sweeps on the
-               warm starts' 2048 and 768 chains, also against the f32 sweep);
-               K4 in both modes on Hub3000's topology with unit and +-1
-               weights (a hub's list of many words, isolated nodes' empty
-               lists); K8b, forced, on Hub3000 and on a 10,000-node path (a
-               level schedule of 10,000 levels) against the sequential plain
-               sweep and the f32 sweep, each schedule's depth printed;
+               sweep), K6 on W22-like and K7 on W70-like (the plain sweep
+               on 2048 chains and 2 sweeps); K4 in both modes on Hub3000's
+               topology with unit and +-1 weights (a hub's list of many
+               words, isolated nodes' empty lists); the 1-flip sweeps K8a
+               (each row's non-zero plane words) on W22-like (forced),
+               Hub3000 and D2000-like (10% of all pairs), and K8b (lists on a
+               level schedule) on those and on W70-like and a 10,000-node
+               path (10,000 levels), each against the sequential plain
+               sweep, the f32 sweep and each other, on 2048 or 768 chains;
                fused K6 equals fused K7 (a small forced stage on W22-like,
                the engine's on W70-like's 24,576 chains) and, on G22-like
                with random +-1 signs, fused K4; on a hub graph with isolated
                nodes, whose hub's list spans several of K7's stages, K6 and
                K7 equal the plain sweep and each other; the fused sampler's
-               marginals are
-               checked against the policy; K10, the f32 1-flip sweep, on
-               L2A's 2048 chains of G22-like (also against K5) and of
-               F22-like (the same topology, weights uniform in [0.5, 1.5));
+               marginals are checked against the policy; K10, the f32 1-flip
+               sweep on each accepted flip's neighbour list, on L2A's 2048
+               chains of G22-like (also against K5), F22-like (the same
+               topology, weights uniform in [0.5, 1.5)) and the complete
+               graph on 2000 nodes (s and vs bit for bit, gains as values);
                K11 and K12 on 8192 chains x 1024 rounds of G22-like (the MH
                shapes of bench.py), against each other on probs of the
                2^-16 grid, and K11's marginals against the policy;
@@ -41,11 +43,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                path must have launched;
   5. w22     — MCPG `--fast` on W22-like (the G22-like topology, integer
                weights in +-{1..7}) with the same preset, cut to 2 rounds:
-               the engine must pick K6 and K8a, and K3, K6, K8a must launch;
+               K3, K6 and the 1-flip kernel the engine's rule picks (K8b at
+               20 neighbours a node) must launch, and no other sweep;
   6. w70     — MCPG `--fast` on W70-like (10000 nodes, 9999 edges, the same
                weights) with the gset_70 preset cut to 768 x 32 chains and 2
-               rounds: the engine must pick K7 and K8b (its warm start's
-               1-flip sweep), and K3, K7, K8b must launch;
+               rounds: the engine must pick K7, and K8b for its warm start's
+               1-flip sweep; K3, K7, K8b must launch;
+     d2000   — parallel local search with the packed 1-flip sweep on
+               D2000-like (200 neighbours a node) at 2048 chains: the best
+               cut must equal its host re-score, the kernel the rule picks
+               (K8a) must be the only packed sweep launched, and K8a must
+               have launched on some solver path;
   7. profile — device time by kernel of one --fast round on G22-like,
                W22-like and W70-like, and of the W70-like solve's warm
                start (its local-search rounds end in K8b; torch.profiler);
@@ -59,16 +67,19 @@ Phases (each prints its seconds; any failure exits non-zero):
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
  10. time    — kernel, plain-version and bound times at each path's shapes
-               (K7's with its transposes), and K6 on G22-like's own lists
-               beside K4; a bit-plane sweep's bound counts the popcounts its
-               tables' non-zero words need and, per warp and step, reads of
-               those words and of the distinct chain words they meet; K6's,
-               K7's and K8b's bound is the least of that and the
-               neighbour-list reckoning (a bit extract and a multiply-add per
-               neighbour, reads of the distinct neighbour words and of the
-               list); K10's counts the f32 updates its accepted flips need;
-               `dense_bound_ms` (every word; K10: every rank-1 update) beside
-               it.
+               (K7's with its transposes; K8a on D2000-like, the d2000
+               phase's graph and chains), K6 on G22-like's own lists beside
+               K4, and K8a beside K8b on D2000-like and W22-like (forced); a bit-plane sweep's bound counts the
+               popcounts its tables' non-zero words need and, per warp and
+               step, reads of those words and of the distinct chain words
+               they meet (K8a's bytes: its word entries); K6's, K7's and
+               K8b's bound is the least of that and the neighbour-list
+               reckoning (a bit extract and a multiply-add per neighbour,
+               reads of the distinct neighbour words and of the list);
+               K10's counts one f32 FMA per listed neighbour of each
+               accepted flip, its bytes the state in and out and the lists;
+               `dense_bound_ms` (every word; K10: every rank-1 update over
+               the dense rows) beside it.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
@@ -123,6 +134,7 @@ K10_STEP_OPS = 2  # per (chain, node): the compare and the add to the cut
 K11_OPS = 10 + 3  # per proposal: node/word/bit decode, read bit, flip; q, u*q, 1-q in f32
 MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
 FORCED_STAGE = 100  # K7's list entries per stage in the checks that force it small
+FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_levels"}  # by FlipPlan.levels
 
 
 def build_hub_graph():
@@ -263,7 +275,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from rlsolver_tpu_torch.algos import l2a
     from rlsolver_tpu_torch.algos.mcpg import GSET_PRESETS_40G, _build_steps, new_policy, solve_maxcut_mcpg
-    from rlsolver_tpu_torch.core.generate import build_f22_like, build_g22_like, build_w22_like, build_w70_like
+    from rlsolver_tpu_torch.algos.local_search_solver import LocalSearchConfig, solve_maxcut_local_search
+    from rlsolver_tpu_torch.core.generate import (build_complete_f32, build_d2000_like, build_f22_like, build_g22_like,
+                                                  build_w22_like, build_w70_like)
     from rlsolver_tpu_torch.core.graph import Graph
     from rlsolver_tpu_torch.device import resolve_device
     from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
@@ -431,41 +445,50 @@ def main() -> int:
                   wsw.mcpg_sweep_weighted_fused(5, bits, wsw.WeightedSweepTables.build(g_pm, dev), num_sweeps=S),
                   sw.mcpg_sweep_fused(5, bits, sw.PackedSweepTables.build(g_pm, dev), num_sweeps=S), errs,
                   "mcpg_sweep_weighted")
-    # K8a on W22-like; K8b on W70-like (the engine's choice), and forced on
-    # Hub3000 and a 10,000-node path (a schedule of 10,000 levels)
-    path = build_path_graph()
-    for gw, levels, b_warm, name in ((w22, False, B_WARM, "K8a"), (w70, True, W70_CHAINS, "K8b"),
-                                     (hub, True, W70_CHAINS, "K8b"), (path, True, W70_CHAINS, "K8b")):
+    # K8a on W22-like (forced), Hub3000 and D2000-like; K8b on the same and
+    # on W70-like and a 10,000-node path (a schedule of 10,000 levels); each
+    # against the sequential plain sweep, the other kernel and the f32 sweep
+    path, d2000 = build_path_graph(), build_d2000_like()
+    flip_checks = ((w22, B_WARM, (False, True)), (w70, W70_CHAINS, (True,)), (hub, W70_CHAINS, (False, True)),
+                   (path, W70_CHAINS, (True,)), (d2000, B_WARM, (False, True)))
+    for gw, b_warm, modes in flip_checks:
         aw = wsw.WeightedAdjPlanes.build(gw, dev)
         print(f"  {gw.name}: N={gw.num_nodes}, {aw.entries.shape[0]} list entries, a level schedule of depth "
-              f"{aw.depth}", flush=True)
+              f"{aw.depth}, {aw.word_entries.shape[0] - 1} word entries ({(aw.word_entries.shape[0] - 1) / gw.num_nodes:.1f}"
+              f" a row); 1-flip plan {engine.plan_1flip(gw, l2)}", flush=True)
         warm_w = torch.rand(b_warm, gw.num_nodes, generator=gen, device=dev) < 0.5
-        out = wsw.sweep_1flip_weighted(warm_w, aw, levels=levels)
-        key = "sweep_1flip_weighted" + ("_levels" if levels else "")
-        require_equal(f"{name} on {gw.name} vs the sequential plain sweep", out, wsw._sweep_1flip_plain(warm_w, aw),
-                      errs, key)
+        plain_w = wsw._sweep_1flip_plain(warm_w, aw)
         env_w = MaxcutEnv(gw, dev)
         f32_bits, f32_vs = env_w.sweep_1flip(warm_w, env_w.obj(warm_w))
-        require_equal(f"{name} on {gw.name} vs the f32 incremental-gain sweep", out, f32_bits, errs, key)
-        if not torch.equal(env_w.obj(out), f32_vs):
-            raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
-        del env_w, aw
+        for levels in modes:
+            name, key = ("K8b", "sweep_1flip_weighted_levels") if levels else ("K8a", "sweep_1flip_weighted")
+            out = wsw.sweep_1flip_weighted(warm_w, aw, levels=levels)
+            require_equal(f"{name} on {gw.name} vs the sequential plain sweep", out, plain_w, errs, key)
+            require_equal(f"{name} on {gw.name} vs the f32 incremental-gain sweep", out, f32_bits, errs, key)
+            if not torch.equal(env_w.obj(out), f32_vs):
+                raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
+        if len(modes) == 2:
+            require_equal(f"K8a vs K8b on {gw.name}", wsw.sweep_1flip_weighted(warm_w, aw),
+                          wsw.sweep_1flip_weighted(warm_w, aw, levels=True), errs, "sweep_1flip_weighted")
+        del env_w, aw, plain_w
 
     # K10 at L2A's shapes (256 sims x 8 repeats), on integer and real weights
     B_L2A = l2a.L2AConfig().num_sims * l2a.L2AConfig().num_repeats
     if B_L2A != B_WARM:
         raise AssertionError("K10 is checked against K5 on the warm start's chains: L2A's count must match")
     k10_cases = {}
-    for gk, env_k, xs_k in ((g, env32, warm), (build_f22_like(), None, None)):
+    for gk, env_k, xs_k in ((g, env32, warm), (build_f22_like(), None, None), (build_complete_f32(), None, None)):
         if env_k is None:
             env_k = MaxcutEnv(gk, dev)
             xs_k = torch.rand(B_L2A, gk.num_nodes, generator=gen, device=dev) < 0.5
         args = (env_k.cg.adj, cut.signs_from_bits(xs_k), env_k.gains(xs_k), env_k.obj(xs_k))
-        out_k = sk.sweep_1flip_f32(*args)
+        out_k = sk.sweep_1flip_f32(*args, env_k.f32_lists)
         for part, a, b in zip(("s", "gains", "vs"), out_k, sk.sweep_1flip_f32_plain(*args)):
             require_equal(f"K10 sweep_1flip_f32 on {gk.name}: {part}", a, b, errs, "sweep_1flip_f32")
-        k10_cases[gk.name] = (args, int((out_k[0] != args[1]).sum()))
-        print(f"  K10 on {gk.name}: {k10_cases[gk.name][1]} accepted flips in {B_L2A} chains", flush=True)
+        k10_cases[gk.name] = (args, env_k.f32_lists, out_k[0] != args[1])
+        lens = (env_k.f32_lists.offsets[1:] - env_k.f32_lists.offsets[:-1]).float()
+        print(f"  K10 on {gk.name}: {int(k10_cases[gk.name][2].sum())} accepted flips in {B_L2A} chains, lists of "
+              f"{float(lens.mean()):.1f} entries on average", flush=True)
         if gk is g:
             require_equal("K10 vs K5 on G22like", out_k[0] > 0, sw.sweep_1flip_packed(warm, adj), errs,
                           "sweep_1flip_f32")
@@ -555,14 +578,15 @@ def main() -> int:
     SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
               "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
     weighted_counts, weighted_cfgs = {}, {}
-    for gw, cfg_w, sweep_k, flip_k in (
-        (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted", "sweep_1flip_weighted"),
+    for gw, cfg_w, sweep_k in (
+        (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted"),
         (w70, dataclasses.replace(GSET_PRESETS_40G["gset_70"], repeat_times=W70_REPEATS, sampler="fused",
                                   sweep_mode="packed", max_epoch_num=1, reset_epoch_num=16, seed=0),
-         "mcpg_sweep_weighted_chunked", "sweep_1flip_weighted_levels"),
+         "mcpg_sweep_weighted_chunked"),
     ):
         t0 = time.time()
         sweep_eng, flip_eng = engine.plan_sweep(gw, l2), engine.plan_1flip(gw, l2)
+        flip_k = FLIP_KERNELS[flip_eng.levels]
         print(f"  {gw.name}: sweep plan {sweep_eng}, 1-flip plan {flip_eng}")
         torch.cuda.reset_peak_memory_stats()
         build.reset_counts()
@@ -587,6 +611,28 @@ def main() -> int:
             raise AssertionError(f"{gw.name}: the engine chose other kernels than expected: {wrong}")
         weighted_cfgs[gw.name] = cfg_w
         phase(gw.name.lower().replace("like", ""), t0)
+
+    # parallel local search with the packed 1-flip sweep on D2000-like -------
+    t0 = time.time()
+    ls_cfg = LocalSearchConfig(num_sims=B_WARM, packed_sweep=True, seed=0)
+    flip_d = engine.plan_1flip(d2000, l2)
+    print(f"  {d2000.name}: {d2000.num_edges} edges, {2 * d2000.num_edges / d2000.num_nodes:.1f} neighbours a node; "
+          f"1-flip plan {flip_d}")
+    build.reset_counts()
+    best_x, best_v, ev = solve_maxcut_local_search(d2000, ls_cfg, device=dev)
+    torch.cuda.synchronize()
+    d2000_counts = {k.name: k.launches for k in build.KERNELS}
+    host = obj_maxcut(best_x.astype("int64"), d2000)
+    print(f"  {ls_cfg.num_sims} chains, {ls_cfg.num_iters} iterations: best cut {best_v} host re-score {host}; "
+          f"launches {d2000_counts}")
+    if host != best_v:
+        raise AssertionError(f"d2000: best cut {best_v} != host re-score {host}")
+    ran = [k for k in SWEEPS if d2000_counts[k]]
+    if ran != [FLIP_KERNELS[flip_d.levels]]:
+        raise AssertionError(f"d2000: the packed 1-flip sweeps {ran} ran, the rule picks {FLIP_KERNELS[flip_d.levels]}")
+    if not any(c["sweep_1flip_weighted"] for c in (*weighted_counts.values(), d2000_counts)):
+        raise AssertionError("K8a launched on no solver path")
+    phase("d2000", t0)
 
     # where one --fast round's device time goes (torch.profiler) -------------
     t0 = time.time()
@@ -778,45 +824,83 @@ def main() -> int:
                     step_ops=steps)
 
     def weighted_flip_row(name, kernel, aw, bits_w, levels, launches, reps):
-        """K8a (bit-planes) or K8b (lists in the level schedule); K8b's bound
-        is the least of the bit-plane reckoning and the neighbour-list one
-        (a bit extract and a multiply-add per neighbour, a step's own work,
-        the list's bytes and reads)."""
+        """K8a (each row's non-zero plane words) or K8b (lists in the level
+        schedule). K8a's bound is the bit-plane reckoning (a popcount per
+        chain per non-zero table word), its bytes the word entries; K8b's is
+        the least of that and the neighbour-list reckoning (a bit extract
+        and a multiply-add per neighbour, a step's own work, the list's
+        bytes and reads)."""
         nn, bb = aw.num_nodes, bits_w.shape[0]
         ww = codec.num_words(nn)
         wds = codec.pack_bits(bits_w)
         work = scan_work(bb, 1, (nonzero(aw.planes), 0), (aw.planes.numel(), 0), (plane_reads(aw.planes), 0))
+        words_tab = (aw.word_offsets, aw.word_entries, aw.wdeg)
         row = dict(name=name, kernel=kernel, launches=launches,
-                   run=lambda: kernel.launch(aw.planes, aw.wdeg, aw.k, int(aw.signed), wds, bb, ww, nn),
+                   run=lambda: kernel.launch(*words_tab, aw.word_entries.shape[0] - 1, wds, bb, ww, nn),
                    plain=lambda: wsw._sweep_1flip_plain(bits_w, aw), plain_chains=bb, reps=reps,
-                   bytes=2 * bb * ww * 4 + aw.planes.numel() * 4 + nn * 4, work=work, step_ops=bb * nn * STEP_OPS)
+                   bytes=2 * bb * ww * 4 + sum(t.numel() for t in words_tab) * 4, work=work,
+                   step_ops=bb * nn * STEP_OPS)
         if levels:
             tabs = (aw.offsets, aw.entries, aw.level_nodes, aw.level_offsets, aw.wdeg)
             row["run"] = lambda: kernel.launch(*tabs, wds, bb, ww, aw.depth)
+            row["bytes"] = 2 * bb * ww * 4 + aw.planes.numel() * 4 + nn * 4  # the planes K8b's bit-plane twin reads
             row["list_work"] = (2 * bb * ww * 4 + sum(t.numel() for t in tabs) * 4,
                                 NBR_INT_OPS * bb * aw.entries.shape[0] + bb * nn * STEP_OPS,
                                 -(-bb // 32) * list_reads(aw.offsets, aw.entries))
         return row
 
+    def flip_pair_ms(aw, bits_w):
+        """K8a's and K8b's ms on the same chains, in the order K8a K8b K8b K8a
+        (each the mean of 5 launches)."""
+        nn, bb = aw.num_nodes, bits_w.shape[0]
+        ww = codec.num_words(nn)
+        wds = codec.pack_bits(bits_w)
+        k8a = lambda: wsw.WSWEEP_1FLIP.launch(aw.word_offsets, aw.word_entries, aw.wdeg, aw.word_entries.shape[0] - 1,
+                                              wds, bb, ww, nn)
+        k8b = lambda: wsw.WSWEEP_1FLIP_LEVELS.launch(aw.offsets, aw.entries, aw.level_nodes, aw.level_offsets,
+                                                     aw.wdeg, wds, bb, ww, aw.depth)
+        a1, b1, b2, a2 = (cuda_ms(f, 5) for f in (k8a, k8b, k8b, k8a))
+        return (a1 + a2) / 2, (b1 + b2) / 2
+
     c22, c70 = weighted_counts["W22like"], weighted_counts["W70like"]
     n70 = w70.num_nodes
+
+    def path_launches(key):
+        """A 1-flip kernel's launches over the solver paths that run it."""
+        return sum(c[key] for c in (c22, c70, d2000_counts))
+
     rows += [
         weighted_sweep_row("mcpg_sweep_weighted", wsw.WSWEEP, tw22, words, None, c22["mcpg_sweep_weighted"]),
         weighted_sweep_row("mcpg_sweep_weighted_chunked", wsw.WSWEEP_CHUNKED, wsw.WeightedSweepTables.build(w70, dev),
                            codec.pack_bits(torch.rand(B70, n70, generator=gen, device=dev) < 0.5), chunk70,
                            c70["mcpg_sweep_weighted_chunked"]),
-        weighted_flip_row("sweep_1flip_weighted", wsw.WSWEEP_1FLIP, wsw.WeightedAdjPlanes.build(w22, dev),
-                          torch.rand(B_WARM, n, generator=gen, device=dev) < 0.5, False,
-                          c22["sweep_1flip_weighted"], 10),
+        weighted_flip_row("sweep_1flip_weighted", wsw.WSWEEP_1FLIP, wsw.WeightedAdjPlanes.build(d2000, dev),
+                          torch.rand(B_WARM, d2000.num_nodes, generator=gen, device=dev) < 0.5, False,
+                          path_launches("sweep_1flip_weighted"), 10),
         weighted_flip_row("sweep_1flip_weighted_levels", wsw.WSWEEP_1FLIP_LEVELS,
                           wsw.WeightedAdjPlanes.build(w70, dev),
                           torch.rand(W70_CHAINS, n70, generator=gen, device=dev) < 0.5, True,
-                          c70["sweep_1flip_weighted_levels"], 10),
+                          path_launches("sweep_1flip_weighted_levels"), 10),
     ]
+    # K8a beside K8b on D2000-like (10% density) and W22-like, 2048 chains
+    flip_pairs = {}
+    for gw in (d2000, w22):
+        aw = wsw.WeightedAdjPlanes.build(gw, dev)
+        ta, tb = flip_pair_ms(aw, torch.rand(B_WARM, gw.num_nodes, generator=gen, device=dev) < 0.5)
+        flip_pairs[gw.name] = dict(k8a_ms=ta, k8b_ms=tb, k8b_depth=aw.depth,
+                                   word_entries_per_row=(aw.word_entries.shape[0] - 1) / gw.num_nodes,
+                                   neighbours_per_node=2 * gw.num_edges / gw.num_nodes)
+        print(f"  {gw.name}, {B_WARM} chains: K8a {ta:.3f} ms, K8b {tb:.3f} ms (depth {aw.depth}); "
+              f"{flip_pairs[gw.name]['word_entries_per_row']:.1f} word entries a row, "
+              f"{flip_pairs[gw.name]['neighbours_per_node']:.1f} neighbours a node", flush=True)
+        del aw
     # K10 on the G22-like check's chains: each timed launch first restores
     # the input state (timed alone and taken off)
-    (adj22, s22, g22, v22), flips22 = k10_cases["G22like"]
+    (adj22, s22, g22, v22), lists22, accepted22 = k10_cases["G22like"]
     ws, wg, wv = s22.clone(), g22.clone(), v22.clone()
+    # the listed neighbours of every accepted flip: one f32 FMA each
+    listed22 = float((accepted22.float() @ (lists22.offsets[1:] - lists22.offsets[:-1]).float()).sum())
+    state_bytes = 2 * (2 * B_L2A * n * 4 + B_L2A * 4)  # s, gains and vs in and out
 
     def k10_restore():
         ws.copy_(s22)
@@ -825,18 +909,20 @@ def main() -> int:
 
     def k10_run():
         k10_restore()
-        sk.SWEEP_1FLIP_F32.launch(adj22, ws, wg, wv, B_L2A, n)
+        sk.SWEEP_1FLIP_F32.launch(lists22.offsets, lists22.entries, ws, wg, wv, B_L2A, n)
 
     mh_w = codec.pack_bits(mh_bits)
     w_mh = codec.num_words(n)
     rows += [
         dict(name="sweep_1flip_f32", kernel=sk.SWEEP_1FLIP_F32, launches=l2a_counts["sweep_1flip_f32"],
              run=k10_run, restore=k10_restore, plain=lambda: sk.sweep_1flip_f32_plain(adj22, s22, g22, v22),
-             plain_chains=B_L2A, reps=10, bytes=n * n * 4 + 2 * (2 * B_L2A * n * 4 + B_L2A * 4), step_ops=0,
-             # the f32 updates the accepted flips need, and those of every rank-1 update
-             f32=(flips22 * n * K10_F32_OPS + B_L2A * n * K10_STEP_OPS,
+             plain_chains=B_L2A, reps=10, step_ops=0,
+             bytes=state_bytes + (lists22.entries.numel() + lists22.offsets.numel()) * 4,
+             # the f32 updates the accepted flips' lists need, and those of
+             # every rank-1 update (with the dense rows' bytes)
+             f32=(listed22 * K10_F32_OPS + B_L2A * n * K10_STEP_OPS,
                   B_L2A * n * n * K10_F32_OPS + B_L2A * n * K10_STEP_OPS),
-             l2_row_bytes=flips22 * n * 4),
+             dense_bytes=state_bytes + n * n * 4, list_bytes_read=listed22 * 8),
         dict(name="mh_sample_onehot", kernel=mh.MH_ONEHOT, launches=injected_counts["mh_sample_onehot"],
              run=lambda: mh.MH_ONEHOT.launch(nodes, u, probs, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
              plain=lambda: mh.mh_onehot_plain(nodes, u, probs, mh_w, n), plain_chains=MH_CHAINS, reps=10,
@@ -879,12 +965,13 @@ def main() -> int:
                 kernels[-1].update(bound_ms=list_ms, bound_by=list_by)
                 bound_ms, bound_by = list_ms, list_by
         if "f32" in row:
-            kernels[-1]["dense_bound_ms"] = bound(row["bytes"], row["step_ops"], 0, 0, dense_f32)[0]
+            kernels[-1]["dense_bound_ms"] = bound(row["dense_bytes"], row["step_ops"], 0, 0, dense_f32)[0]
             kernels[-1]["needed_over_dense_f32_ops"] = f32_ops / dense_f32
-            # each warp reads the rows of its chain's accepted flips from L2
-            kernels[-1]["l2_row_bytes"] = row["l2_row_bytes"]
-            print(f"  {row['name']}: adjacency rows read per launch {row['l2_row_bytes'] / 1e9:.3f} GB, "
-                  f"{row['l2_row_bytes'] / ms / 1e9:.3f} TB/s")
+            # each warp reads the lists of its chain's accepted flips
+            kernels[-1]["list_bytes_read"] = row["list_bytes_read"]
+            print(f"  {row['name']}: list entries read per launch {row['list_bytes_read'] / 1e9:.4f} GB "
+                  f"({row['list_bytes_read'] / ms / 1e9:.3f} TB/s), {f32_ops:.4g} f32 operations, "
+                  f"{row['bytes'] / 1e6:.1f} MB of state and lists")
         if "plain_sweeps" in row:
             kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
         if "yardstick" in row:
@@ -894,6 +981,9 @@ def main() -> int:
         print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; dense bound "
               f"{kernels[-1].get('dense_bound_ms', bound_ms):.3f} ms); "
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
+    for k in kernels:
+        if k["name"] == "sweep_1flip_weighted":
+            k["beside_k8b"] = flip_pairs
     phase("time", t0)
 
     print(smi)

@@ -181,6 +181,21 @@ def build_w22_like() -> Graph:
     return build_weighted_gnm(2000, 19990, 22, "W22like")
 
 
+def build_d2000_like() -> Graph:
+    """A dense integer-weighted check graph: G(2000, 199900), 10% of all
+    pairs (about 200 neighbours a node), weights in +-{1..7}."""
+    return build_weighted_gnm(2000, 199900, 2000, "D2000like")
+
+
+def build_complete_f32(n: int = 2000, seed: int = 2000) -> Graph:
+    """The complete graph on n nodes, every pair in `numpy.triu_indices`
+    order, each weight uniform in [0.5, 1.5) from
+    `numpy.random.default_rng(seed)`, rounded to f32."""
+    i, j = np.triu_indices(n, k=1)
+    w = np.random.default_rng(seed).uniform(0.5, 1.5, size=i.size).astype(np.float32)
+    return Graph(n, np.stack([i, j], axis=1).astype(np.int32), w, f"K{n}")
+
+
 def build_f22_like() -> Graph:
     """Non-integer-weighted stand-in at G22's size: the G22-like topology
     (2000 nodes, 19990 edges, seed 22) with each edge's weight uniform in

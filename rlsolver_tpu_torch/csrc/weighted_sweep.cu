@@ -1,6 +1,6 @@
 // Integer-weight sweeps: MCPG's noisy degree-ordered sweep on each step's
-// neighbour list, and the greedy 1-flip sweep on signed bit-planes or on
-// neighbour lists in a level schedule.
+// neighbour list, and the greedy 1-flip sweep on each row's non-zero
+// bit-plane words or on neighbour lists in a level schedule.
 //
 // Replaces rlsolver_tpu/ops/pallas/weighted_sweep.py:
 //   _wsweep_kernel (K6)                 -> wsweep_kernel
@@ -55,12 +55,28 @@
 // P = sum_j w_ij x_j, cut = x_i ? wdeg_i - P : P, and a flip when
 // wdeg_i - 2 cut > 0 (wdeg computed once with the tables, as K5's degrees
 // are).
-//   K8a (wsweep_1flip_kernel), on the bit-planes of WeightedAdjPlanes:
-//   weights |w| < 2^15 split into K <= 15 binary planes, positive and, on a
-//   graph with negative weights, negative, P = sum_b 2^b (pc(x & pos_b) -
-//   pc(x & neg_b)). One thread runs one chain with the block's chains in
-//   shared memory and reads the rows in place through L1/L2 (__ldg). It
-//   popcounts every word of every plane, most of them zero on sparse graphs.
+//   K8a (wsweep_1flip_kernel), on WeightedAdjPlanes' word entries: weights
+//   |w| < 2^15 split into k <= 15 binary planes, positive and, on a graph
+//   with negative weights, negative, P = sum_b 2^b (pc(x & pos_b) -
+//   pc(x & neg_b)); row i's entries are its non-zero (plane, word) pairs,
+//   {(c << 16) | w, mask} with c the plane's signed weight. The TPU kernel
+//   popcounted every word of every plane (and the port's first K8a did so
+//   with one thread a chain, 16 blocks on W22-like's 2048 chains: 16 of 132
+//   SMs); most of those words are zero on a sparse graph. Here one warp
+//   runs one chain, so 2048 chains are 2048 warps on every SM, and its
+//   lanes split row i's entries, one popcount of one shared-memory chain
+//   word each, before one warp reduction. The first 256 entries of each
+//   of the next four rows wait in registers (a ring of slots, loaded four
+//   steps ahead), so a step is the reduction's dependent chain with no load
+//   on it, and costs about the same from 3 to 256 entries a row: 0.96-0.99
+//   ms for 2000 steps of 2048 chains on an H100 (16 warps an SM), 2.4 ms at
+//   375 entries, where the rest of each row is loaded at its step. A
+//   popcount serves up to 32 neighbours, so K8a pays where rows are dense:
+//   0.98 ms against K8b's 4.69 ms at 200 neighbours a node, where K8b's
+//   lists are long and its schedule 341 levels deep. Fewer entries held
+//   per row ran short rows faster (0.53 ms at 3 entries with 32 held), but
+//   K8a runs only on dense rows, where K8b is slower (scripts/
+//   torch_engine_share.py, PERF.md).
 //   K8b (wsweep_1flip_levels_kernel), on WeightedAdjPlanes' natural-order
 //   neighbour lists {j, w}: the sequential sweep is a chain of N dependent
 //   steps, and one thread per chain left the card idle (W70-like's 768
@@ -85,8 +101,7 @@
 
 namespace {
 
-constexpr int kMaxPlanes = 15;
-constexpr int kLevelChainsPerBlock = 4;  // K8b: warps (chains) a block
+constexpr int kWarpChainsPerBlock = 4;  // K8a, K8b: warps (chains) a block
 
 // ---------------------------------------------------------------------------
 // K6 and K7: the noisy sweep on neighbour lists
@@ -290,30 +305,11 @@ __global__ void wsweep_chunked_kernel(const ListSweepArgs a, int stage) {
 }
 
 // ---------------------------------------------------------------------------
-// K8a: the greedy 1-flip sweep on bit-planes
+// K8a: the greedy 1-flip sweep on each row's non-zero plane words
 
-// Signed weighted popcount of one chain against one node's rows. `pos` is
-// the node's row of positive plane 0; positive plane b's row is at
-// pos + b * pstride, negative plane b's at pos + (K + b) * pstride.
-template <int K, bool kSigned>
-__device__ __forceinline__ int weighted_sum(const uint32_t* my, const uint32_t* __restrict__ pos, size_t pstride,
-                                            int W) {
-  int acc[K];
-#pragma unroll
-  for (int b = 0; b < K; ++b) acc[b] = 0;
-  for (int j = 0; j < W; ++j) {
-    const uint32_t x = my[j];
-#pragma unroll
-    for (int b = 0; b < K; ++b) {
-      acc[b] += __popc(x & __ldg(pos + b * pstride + j));
-      if (kSigned) acc[b] -= __popc(x & __ldg(pos + (K + b) * pstride + j));
-    }
-  }
-  int s = 0;
-#pragma unroll
-  for (int b = 0; b < K; ++b) s += acc[b] << b;
-  return s;
-}
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kAhead = 4;  // K8a: rows a warp holds ahead of the one it decides
+constexpr int kHeld = 8;   // K8a: entries a lane holds of each of those rows
 
 // Whether node i of a chain flips: p = sum_j w_ij x_j, cut = x_i ? wdeg - p
 // : p (the weight to the other side), strict improvement wdeg - 2 cut > 0.
@@ -322,41 +318,87 @@ __device__ __forceinline__ bool flips(const uint32_t* my, int i, int p, int wdeg
   return wdeg - 2 * cut > 0;
 }
 
-struct FlipArgs {
-  const uint32_t* planes;  // [P, N, W]: K positive, K negative if signed
+struct WordFlipArgs {
+  const int32_t* offsets;  // [N + 1] start of each row's entries
+  const int2* entries;     // [E + 1] {(c << 16) | w, mask} by (w, plane), then {0, 0}
   const int32_t* wdeg;     // [N] integer weighted degrees
   uint32_t* words;         // [B, W] chains, updated in place
-  int B, W, N;
+  int B, W, N, E;
 };
 
-template <int K, bool kSigned>
-__global__ void wsweep_1flip_kernel(const FlipArgs a) {
+// One entry's share of a row's sum: its plane's signed weight c (+2^p or
+// -2^p) times the popcount of the chain's word w under the mask. The empty
+// entry {0, 0} gives 0.
+__device__ __forceinline__ int entry_sum(const uint32_t* my, int2 q) {
+  return (q.x >> 16) * __popc(my[q.x & 0xFFFF] & static_cast<uint32_t>(q.y));
+}
+
+// What a lane holds of one row ahead: entries e0 + lane + 32 r (r < kHeld;
+// the empty entry E past the row's end, so that every load is made and no
+// select waits on one), where the rest of the row starts for this lane and
+// where it ends, the row's weighted degree, and the end of the row that
+// the slot holds next (offsets[row + kAhead + 1]).
+struct Held {
+  int2 q[kHeld];
+  int rest, end, wdeg, next_end;
+};
+
+__device__ __forceinline__ void hold(Held& h, const WordFlipArgs& a, int row, int e0, int e1, int lane) {
+#pragma unroll
+  for (int r = 0; r < kHeld; ++r) {
+    const int e = e0 + 32 * r + lane;
+    h.q[r] = __ldg(a.entries + (e < e1 ? e : a.E));
+  }
+  h.rest = e0 + 32 * kHeld + lane;
+  h.end = e1;
+  h.wdeg = __ldg(a.wdeg + min(row, a.N - 1));
+  h.next_end = __ldg(a.offsets + min(row + kAhead + 1, a.N));
+}
+
+// One warp per chain, kWarpChainsPerBlock chains a block in shared memory.
+// Step i: each lane sums its entries of row i, one warp reduction gives P,
+// lane 0 stores the flipped word and __syncwarp orders it before step
+// i + 1's reads. A row's entries do not depend on any flip, so
+// slot i % kAhead holds row i's first kHeld x 32 entries, loaded at step
+// i - kAhead into the registers that step had just read; the loop is
+// unrolled kAhead times so that no register is moved while its load is in
+// flight. Rows longer than kHeld x 32 entries load the rest at their step.
+__global__ void wsweep_1flip_kernel(const WordFlipArgs a) {
   extern __shared__ uint32_t sm[];
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, a.B - b0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_block = blockDim.x >> 5;
+  const long long b0 = (long long)blockIdx.x * per_block;
+  const int nb = min((long long)per_block, a.B - b0);
   rl::load_chains(sm, a.words, b0, nb, a.W);
-  if (threadIdx.x < nb) {
-    uint32_t* my = sm + threadIdx.x * rl::smem_stride(a.W);
-    const size_t pstride = (size_t)a.N * a.W;
-    for (int i = 0; i < a.N; ++i) {
-      const int p = weighted_sum<K, kSigned>(my, a.planes + (size_t)i * a.W, pstride, a.W);
-      if (flips(my, i, p, __ldg(a.wdeg + i))) my[i >> 5] ^= 1u << (i & 31);
+  if (warp < nb) {
+    uint32_t* my = sm + warp * rl::smem_stride(a.W);
+    const int N = a.N;
+    Held h[kAhead];
+#pragma unroll
+    for (int r = 0; r < kAhead; ++r)
+      hold(h[r], a, r, __ldg(a.offsets + min(r, N)), __ldg(a.offsets + min(r + 1, N)), lane);
+    for (int i = 0; i < N; i += kAhead) {
+#pragma unroll
+      for (int r = 0; r < kAhead; ++r) {
+        const int node = i + r;
+        if (node >= N) break;
+        Held& cur = h[r];
+        int part = 0;
+#pragma unroll
+        for (int q = 0; q < kHeld; ++q) part += entry_sum(my, cur.q[q]);
+        for (int e = cur.rest; e < cur.end; e += 32) part += entry_sum(my, __ldg(a.entries + e));
+        const int wdeg = cur.wdeg;
+        // row node + kAhead starts where row node + kAhead - 1, held by the
+        // previous slot, ends
+        hold(cur, a, node + kAhead, h[(r + kAhead - 1) % kAhead].end, cur.next_end, lane);
+        const int p = __reduce_add_sync(kFull, part);
+        if (lane == 0 && flips(my, node, p, wdeg)) my[node >> 5] ^= 1u << (node & 31);
+        __syncwarp();
+      }
     }
   }
   rl::store_chains(sm, a.words, b0, nb, a.W);
 }
-
-// One instantiation per plane count K = 1..15 and sign, picked at launch.
-#define RL_BY_K(kern, sgn)                                                                              \
-  {                                                                                                     \
-    kern<1, sgn>, kern<2, sgn>, kern<3, sgn>, kern<4, sgn>, kern<5, sgn>, kern<6, sgn>, kern<7, sgn>, \
-        kern<8, sgn>, kern<9, sgn>, kern<10, sgn>, kern<11, sgn>, kern<12, sgn>, kern<13, sgn>,       \
-        kern<14, sgn>, kern<15, sgn>                                                                    \
-  }
-
-using FlipFn = void (*)(FlipArgs);
-
-const FlipFn kFlip[2][kMaxPlanes] = {RL_BY_K(wsweep_1flip_kernel, false), RL_BY_K(wsweep_1flip_kernel, true)};
 
 // ---------------------------------------------------------------------------
 // K8b: the greedy 1-flip sweep on neighbour lists, in a level schedule
@@ -371,7 +413,7 @@ struct LevelArgs {
   int B, W, D;
 };
 
-// One warp per chain, kFlipChainsPerBlock chains a block in shared memory.
+// One warp per chain, kWarpChainsPerBlock chains a block in shared memory.
 // The lanes split each level's nodes; a flip is an atomicXor on the shared
 // word, which other lanes of the level may be flipping other bits of. Nodes
 // of a level are never adjacent, so no bit that a lane reads changes during
@@ -409,12 +451,27 @@ __global__ void wsweep_1flip_levels_kernel(const LevelArgs a) {
 // chain tile that fits.
 template <typename Fn, typename... Args>
 cudaError_t launch(Fn kernel, int B, int W, cudaStream_t st, Args... args) {
-  if (kernel == nullptr) return cudaErrorInvalidValue;
   int threads;
   size_t smem;
   cudaError_t e = rl::prepare(kernel, W, &threads, &smem);
   if (e != cudaSuccess) return e;
   if (B > 0) kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// Launches a one-warp-per-chain kernel (K8a, K8b) over blocks of
+// kWarpChainsPerBlock chains, fewer when their words do not fit.
+template <typename Fn, typename Args>
+cudaError_t launch_warps(Fn kernel, int B, int W, cudaStream_t st, const Args& a) {
+  int chains = kWarpChainsPerBlock;
+  size_t smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t);
+  for (; chains > 1 && smem > rl::kMaxSmem; smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t)) chains /= 2;
+  if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  if (B > 0) kernel<<<(B + chains - 1) / chains, 32 * chains, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -455,29 +512,21 @@ extern "C" int wsweep_chunked(const int32_t* nodes, const float* thr1, const flo
   return cudaGetLastError();
 }
 
-extern "C" int wsweep_1flip(const int32_t* planes, const int32_t* wdeg, int k, int is_signed, int32_t* words,
-                            int B, int W, int N, cudaStream_t st) {
-  const FlipArgs a{reinterpret_cast<const uint32_t*>(planes), wdeg, reinterpret_cast<uint32_t*>(words), B, W, N};
-  const FlipFn kernel = (k >= 1 && k <= kMaxPlanes) ? kFlip[is_signed ? 1 : 0][k - 1] : nullptr;
-  return launch(kernel, B, W, st, a);
+// word_entries [E + 1, 2] int32 {(c << 16) | w, mask}, the last one {0, 0},
+// 8-byte aligned; W < 2^16.
+extern "C" int wsweep_1flip(const int32_t* word_offsets, const int32_t* word_entries, const int32_t* wdeg, int E,
+                            int32_t* words, int B, int W, int N, cudaStream_t st) {
+  if (W >= (1 << 16) || E < 0 || N < 1) return cudaErrorInvalidValue;
+  const WordFlipArgs a{word_offsets, reinterpret_cast<const int2*>(word_entries), wdeg,
+                       reinterpret_cast<uint32_t*>(words), B, W, N, E};
+  return launch_warps(wsweep_1flip_kernel, B, W, st, a);
 }
 
-// entries [E, 2] int32 {j, w}, 8-byte aligned. Blocks of kLevelChainsPerBlock
-// warps, one chain each (fewer when their words do not fit).
+// entries [E, 2] int32 {j, w}, 8-byte aligned.
 extern "C" int wsweep_1flip_levels(const int32_t* offsets, const int32_t* entries, const int32_t* level_nodes,
                                    const int32_t* level_offsets, const int32_t* wdeg, int32_t* words, int B, int W,
                                    int D, cudaStream_t st) {
-  int chains = kLevelChainsPerBlock;
-  size_t smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t);
-  for (; chains > 1 && smem > rl::kMaxSmem; smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t)) chains /= 2;
-  if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(wsweep_1flip_levels_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
   const LevelArgs a{offsets, reinterpret_cast<const int2*>(entries), level_nodes, level_offsets, wdeg,
                     reinterpret_cast<uint32_t*>(words), B, W, D};
-  if (B > 0) wsweep_1flip_levels_kernel<<<(B + chains - 1) / chains, 32 * chains, smem, st>>>(a);
-  return cudaGetLastError();
+  return launch_warps(wsweep_1flip_levels_kernel, B, W, st, a);
 }

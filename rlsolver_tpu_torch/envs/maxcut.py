@@ -7,13 +7,16 @@ reference's `local_search_inplace` (`env_L2A.py:87-116` in RLSolver): noisy
 top-k multi-flips with elitist accepts, then a greedy 1-flip sweep.
 
 `sweep_1flip` runs a packed kernel when the env is built with
-`packed_sweep=True`: K5 on {0, +-1}-weight graphs, the bit-plane kernel K8a
-(or K8b, node-chunked, for tables beyond the card's L2) on other integer
-weights, as `engine.FlipSweepEngine` picks. Otherwise (no `packed_sweep`,
-or weights that are not integers or |w| >= 2^15) it runs the f32 sweep with
-rank-1 gain updates, as the JAX package does: on the card the kernel K10
-(`ops/kernels/sweep_kernel.py`), on the CPU its plain loop. The packed and
-f32 sweeps are bit-identical on integer weights.
+`packed_sweep=True`, as `engine.FlipSweepEngine` picks: K5 on {0, +-1}-weight
+graphs; on other integer weights K8a (one warp a chain over each row's
+non-zero bit-plane words) where rows are dense, else K8b (one warp a chain
+over each node's neighbour list, level by level of a schedule). Otherwise
+(no `packed_sweep`, or weights that are not integers or |w| >= 2^15) it runs
+the f32 sweep with rank-1 gain updates, as the JAX package does: on the card
+the kernel K10 (`ops/kernels/sweep_kernel.py`), which walks each accepted
+flip's neighbour list (`F32AdjLists`, built once with the env), on the CPU
+its plain loop. The packed and f32 sweeps are bit-identical on integer
+weights.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops import cut as cut_ops
 from rlsolver_tpu_torch.ops.kernels.engine import FlipSweepEngine
-from rlsolver_tpu_torch.ops.kernels.sweep_kernel import sweep_1flip_f32
+from rlsolver_tpu_torch.ops.kernels.sweep_kernel import F32AdjLists, sweep_1flip_f32
 from rlsolver_tpu_torch.ops.reductions import update_xs_by_vs
 
 
@@ -46,6 +49,9 @@ class MaxcutEnv:
                 self.flip_engine = FlipSweepEngine.build(graph, self.device)
             except ValueError:
                 pass  # non-integer weights: the f32 sweep below, as in the JAX package
+        self.f32_lists: Optional[F32AdjLists] = None  # K10's lists, for the f32 sweep
+        if self.flip_engine is None and self.cg.adj is not None:
+            self.f32_lists = F32AdjLists.build(self.cg.adj)
 
     def random_xs(self, gen: torch.Generator, num_sims: int) -> torch.Tensor:
         """Uniform random bits with node 0 pinned to 0 (breaks the cut symmetry)."""
@@ -95,5 +101,5 @@ class MaxcutEnv:
             return out, self.obj(out)
         if self.cg.adj is None:
             raise NotImplementedError("sweep_1flip needs the dense adjacency")
-        s, _, vs = sweep_1flip_f32(self.cg.adj, cut_ops.signs_from_bits(xs), self.gains(xs), vs)
+        s, _, vs = sweep_1flip_f32(self.cg.adj, cut_ops.signs_from_bits(xs), self.gains(xs), vs, self.f32_lists)
         return s > 0.0, vs

@@ -9,8 +9,11 @@
 Exactness: the JAX package stores A in bf16 and accumulates in f32. Here A
 and s stay f32 and matmuls run at full f32 precision (TF32 off, see
 `device.resolve_device`), so on integer-weight graphs every partial sum is an
-integer below 2^24 and cuts and gains equal the JAX values exactly. (A bf16
-matmul in torch would return bf16 and lose integers above 256.)
+integer below 2^24 and cuts and gains equal the JAX values exactly, and on
+other weights they match the JAX env built with f32. (A bf16 matmul with f32
+output, `torch.mm(..., out_dtype=torch.float32)`, exists in torch 2.13 and
+would be exact for signs and integer weights below 256 in magnitude; the
+port keeps f32 until a measurement shows the dense cut is worth the switch.)
 
 The [B, N] f32 intermediates are made CHUNK rows at a time: at 10^6 chains x
 2000 nodes one whole intermediate would be 8 GB.

@@ -149,6 +149,19 @@ def _word_lists(masks: torch.Tensor, signed: bool):
     return offsets, entries.contiguous()
 
 
+def word_list_bytes(graph: Graph) -> int:
+    """The bytes of K4's word lists (`word_offsets`, `word_entries`), from the
+    edge list alone: one entry of 16 bytes (32 on a graph with a negative
+    weight) per (step, word) at which the step's row has a neighbour, and
+    the offsets."""
+    n = graph.num_nodes
+    keep = graph.weights != 0
+    i, j = (graph.edges[keep, c].astype(np.int64) for c in (0, 1))
+    rows, cols = np.concatenate([i, j]), np.concatenate([j, i])
+    words = np.unique(rows * num_words(n) + (cols >> 5)).size
+    return words * 16 * (2 if bool((graph.weights < 0).any()) else 1) + (n + 1) * 4
+
+
 def word_planes(tables: PackedSweepTables) -> torch.Tensor:
     """The word lists expanded back to mask planes [P, N, W], in the layout
     of `masks` (what the plain version reads, and the tests compare)."""

@@ -26,8 +26,9 @@ list, from which the port's sweeps compute the same integer:
     at a time. Both give the same bits, and on a {0, +-1} graph K4's bits
     for the same noise or seed.
   * `sweep_1flip_weighted`: the greedy 1-flip sweep in ascending node order,
-    strict improvements only: K8a on the bit-planes of `WeightedAdjPlanes`,
-    or with `levels` K8b on its neighbour lists, level by level of a
+    strict improvements only: K8a on each row's non-zero bit-plane words
+    (`WeightedAdjPlanes.word_entries`), one warp a chain, or with `levels`
+    K8b on its neighbour lists, level by level of a
     schedule in which no two nodes of a level are adjacent and every earlier
     neighbour lies in a lower level, so that the bits are the sequential
     sweep's; bit-exact with the f32 incremental-gain sweep of `MaxcutEnv`.
@@ -61,7 +62,7 @@ WSWEEP_CHUNKED = register(Kernel(
     replaces=f"{_WT}:497 _wsweep_chunked_kernel",
 ))
 WSWEEP_1FLIP = register(Kernel(
-    "sweep_1flip_weighted", "weighted_sweep.cu", "wsweep_1flip", "ppiipiii",
+    "sweep_1flip_weighted", "weighted_sweep.cu", "wsweep_1flip", "pppipiii",
     replaces=f"{_WT}:394 _wsweep_1flip_kernel",
 ))
 WSWEEP_1FLIP_LEVELS = register(Kernel(
@@ -284,18 +285,24 @@ class WeightedAdjPlanes(NamedTuple):
     """Integer adjacency in natural node order, for the greedy 1-flip sweep.
 
     planes [k (+k), N, W] int32: the signed bit-planes, positive then
-    negative, JAX's layout, which K8a reads. offsets [N + 1] and entries
-    [E, 2] int32: node i's neighbours are entries[offsets[i]:offsets[i + 1]],
-    one {j, w_ij} per neighbour, ascending j, which K8b reads with the level
-    schedule: node i's level is 1 + the largest level of its neighbours
-    j < i (0 when it has none); level_nodes [N] holds the node ids sorted by
-    (level, id), and level d's nodes are level_nodes[level_offsets[d]:
-    level_offsets[d + 1]]. wdeg: the integer weighted degree of every node,
-    computed once here as K5's per-row degrees are, not popcounted again
-    for every chain."""
+    negative, JAX's layout. K8a reads only their non-zero words: row i's
+    entries are word_entries[word_offsets[i]:word_offsets[i + 1]], one
+    {(c << 16) | w, planes[p, i, w]} per non-zero word, ordered by (w, p),
+    with c plane p's signed weight, +2^p for p < k and -2^(p - k) beyond;
+    one empty entry {0, 0} follows the last row's. offsets [N + 1] and
+    entries [E, 2] int32: node i's neighbours are entries[offsets[i]:
+    offsets[i + 1]], one {j, w_ij} per neighbour, ascending j, which K8b
+    reads with the level schedule: node i's level is 1 + the largest level
+    of its neighbours j < i (0 when it has none); level_nodes [N] holds the
+    node ids sorted by (level, id), and level d's nodes are level_nodes[
+    level_offsets[d]:level_offsets[d + 1]]. wdeg: the integer weighted
+    degree of every node, computed once here as K5's per-row degrees are,
+    not popcounted again for every chain."""
 
     planes: torch.Tensor  # [k or 2k, N, W] int32
     wdeg: torch.Tensor  # [N] int32 sum_j w_ij
+    word_offsets: torch.Tensor  # [N + 1] int32 CSR row offsets of the word entries
+    word_entries: torch.Tensor  # [E' + 1, 2] int32 {(c << 16) | w, mask}, then {0, 0}
     offsets: torch.Tensor  # [N + 1] int32 CSR row offsets of the lists
     entries: torch.Tensor  # [E, 2] int32 {j, w}
     level_nodes: torch.Tensor  # [N] int32
@@ -329,9 +336,13 @@ class WeightedAdjPlanes(NamedTuple):
         n = graph.num_nodes
         rows, cols, w, offsets = _csr(*_adjacency_entries(graph, device), n)
         level_nodes, level_offsets = level_schedule(offsets.cpu().numpy(), cols.cpu().numpy())
+        planes = _bit_planes(rows, cols, w, n, k, signed)
+        word_offsets, word_entries = plane_words(planes, k)
         return WeightedAdjPlanes(
-            planes=_bit_planes(rows, cols, w, n, k, signed),
+            planes=planes,
             wdeg=torch.zeros(n, dtype=torch.int64, device=device).index_add_(0, rows, w).to(torch.int32),
+            word_offsets=word_offsets,
+            word_entries=word_entries,
             offsets=offsets.to(torch.int32),
             entries=torch.stack([cols, w], dim=1).to(torch.int32).contiguous(),
             level_nodes=torch.from_numpy(level_nodes).to(device),
@@ -339,6 +350,34 @@ class WeightedAdjPlanes(NamedTuple):
             k=k,
             signed=signed,
         )
+
+
+def plane_words(planes: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(word_offsets [N + 1], word_entries [E + 1, 2]) int32 of bit-planes
+    [P, N, W], k positive planes first: each row's non-zero (plane p, word
+    w), ordered by (w, p), as {(c << 16) | w, planes[p, i, w]} with c the
+    plane's signed weight (+2^p, or -2^(p - k) for p >= k), then the empty
+    entry {0, 0}; built where `planes` lies."""
+    _, n, _ = planes.shape
+    by_row = planes.permute(1, 2, 0)  # [N, W, P]
+    rows, idx, p = torch.nonzero(by_row, as_tuple=True)  # by row, then word, then plane
+    offsets = torch.zeros(n + 1, dtype=torch.int64, device=planes.device)
+    offsets[1:] = torch.cumsum(torch.bincount(rows, minlength=n), 0)
+    coef = torch.where(p < k, 1 << p.clamp(max=k - 1), -(1 << (p - k).clamp(min=0)))
+    entries = torch.stack([coef * 65536 + idx, by_row[rows, idx, p].long()], dim=1).to(torch.int32)
+    return offsets.to(torch.int32), torch.cat([entries, entries.new_zeros(1, 2)])
+
+
+def word_entry_bytes(graph: Graph) -> int:
+    """The bytes of K8a's word entries and offsets (`plane_words`), from the
+    edge list alone: 8 per non-zero (row, word, plane) of the signed
+    bit-planes and for the empty entry after them, and the offsets."""
+    n = graph.num_nodes
+    k, _ = weight_planes(graph)
+    rows, cols, w = _adjacency_entries(graph, "cpu")
+    key = (rows * num_words(n) + (cols >> 5)) * (2 * k) + k * (w < 0)
+    keys = torch.cat([(key + b)[(w.abs() >> b) & 1 == 1] for b in range(k)])
+    return (torch.unique(keys).numel() + 1) * 8 + (n + 1) * 4
 
 
 def level_schedule(offsets: np.ndarray, cols: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -379,7 +418,7 @@ def _sweep_1flip_plain(x: torch.Tensor, adj: WeightedAdjPlanes) -> torch.Tensor:
 
 def sweep_1flip_weighted(bits: torch.Tensor, adj: WeightedAdjPlanes, levels: bool = False) -> torch.Tensor:
     """Greedy sequential 1-flip sweep. bits bool [B, N] -> bool [B, N].
-    K8a on the bit-planes, or with `levels` K8b on the lists in the level
+    K8a on the word entries, or with `levels` K8b on the lists in the level
     schedule; the same bits either way."""
     b, n = bits.shape
     if n != adj.num_nodes:
@@ -399,6 +438,12 @@ def sweep_1flip_weighted(bits: torch.Tensor, adj: WeightedAdjPlanes, levels: boo
         WSWEEP_1FLIP_LEVELS.launch(adj.offsets, adj.entries, adj.level_nodes, adj.level_offsets, adj.wdeg, words,
                                    b, w, adj.depth)
     else:
-        check_cuda_tensor(adj.planes, "planes", torch.int32, (adj.k * (2 if adj.signed else 1), n, w))
-        WSWEEP_1FLIP.launch(adj.planes, adj.wdeg, adj.k, int(adj.signed), words, b, w, n)
+        check_cuda_tensor(adj.word_offsets, "word_offsets", torch.int32, (n + 1,))
+        check_cuda_tensor(adj.word_entries, "word_entries", torch.int32, (adj.word_entries.shape[0], 2))
+        if adj.word_entries.data_ptr() % 8:
+            raise ValueError("word_entries must be 8-byte aligned (the kernel reads an entry in one 8-byte load)")
+        if w >= 1 << 16:
+            raise ValueError(f"K8a's entries hold a word index below 2^16; the graph has {w} words a row")
+        WSWEEP_1FLIP.launch(adj.word_offsets, adj.word_entries, adj.wdeg, adj.word_entries.shape[0] - 1, words, b, w,
+                            n)
     return unpack_bits(words, n)

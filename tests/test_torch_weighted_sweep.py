@@ -21,7 +21,7 @@ from rlsolver_tpu.envs.maxcut import MaxcutEnv as JEnv
 from rlsolver_tpu.ops.pallas import mcpg_sweep as jsw
 from rlsolver_tpu.ops.pallas import weighted_sweep as jwsw
 from rlsolver_tpu_torch.algos.mcpg import MCPGConfig, solve_maxcut_mcpg
-from rlsolver_tpu_torch.core.generate import build_g22_like, build_w22_like, build_w70_like, gnm_edges
+from rlsolver_tpu_torch.core.generate import build_d2000_like, build_g22_like, build_w22_like, build_w70_like, gnm_edges
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.ops.kernels import build, engine
 from rlsolver_tpu_torch.ops.kernels import mcpg_sweep as tsw
@@ -172,26 +172,45 @@ def test_fused_k6_equals_fused_k4_on_a_pm1_graph():
 def test_engine_choices_with_the_h100_l2():
     """The engine's choices on the smoke run's graphs, from sizes alone:
     G22-like K4/K5; W22-like K6 (a tile of 128 chains of 63 words, 32 KB,
-    leaves 7 tiles per SM) and K8a (3.0 MB of 1-flip planes); W70-like K7
-    (a tile of 313 words leaves one per SM) with the engine's list stage,
-    and K8b (75.1 MB of planes, above 70% of the 50 MB L2), which has no
-    stage: it reads the lists in its level schedule."""
+    leaves 7 tiles per SM) and K8b (20 neighbours a node, below the 80 from
+    which K8a was the faster); W70-like K7 (a tile of 313 words leaves one
+    per SM) with the engine's list stage, and K8b (2 neighbours a node);
+    D2000-like K8a (200 neighbours a node, 3.6 MB of word entries)."""
     l2 = engine.H100_L2_BYTES
-    g22, w22, w70 = build_g22_like(), build_w22_like(), build_w70_like()
+    g22, w22, w70, d2000 = build_g22_like(), build_w22_like(), build_w70_like(), build_d2000_like()
     assert engine.plan_sweep(g22, l2) == (False, None)
     assert engine.plan_1flip(g22, l2) == (False, False)
-    assert twsw.weight_planes(w22) == (3, True) == twsw.weight_planes(w70)
+    assert twsw.weight_planes(w22) == (3, True) == twsw.weight_planes(w70) == twsw.weight_planes(d2000)
     assert 128 * (63 | 1) * 4 == 32_256 and engine.k6_tiles_per_sm(2000) == 7
     assert engine.plan_sweep(w22, l2) == (True, None)
-    assert engine.plan_1flip(w22, l2) == engine.FlipPlan(weighted=True, levels=False)
+    assert 2 * w22.num_edges / w22.num_nodes < engine.K8A_MIN_NEIGHBOURS == 80
+    assert engine.plan_1flip(w22, l2) == engine.FlipPlan(weighted=True, levels=True)
     assert 128 * (313 | 1) * 4 == 160_256 and engine.k6_tiles_per_sm(10000) == 1
     assert engine.plan_sweep(w70, l2) == (True, engine.LIST_STAGE_ENTRIES)
-    assert 6 * 10000 * 313 * 4 == 75_120_000 > engine.FLIP_L2_SHARE * l2
     assert engine.plan_1flip(w70, l2) == engine.FlipPlan(weighted=True, levels=True)
-    # unit weights at G70's size: K4's 37.6 MB of tables fit (the JAX package
-    # streamed them through K7, for VMEM), and K5's 12.5 MB
+    assert 2 * d2000.num_edges / d2000.num_nodes > engine.K8A_MIN_NEIGHBOURS
+    assert twsw.word_entry_bytes(d2000) == 3_637_780 <= engine.FLIP_L2_SHARE * l2
+    assert engine.plan_1flip(d2000, l2) == engine.FlipPlan(weighted=True, levels=False)
+    # K8a's word entries must fit their share of L2, or K8b runs
+    assert engine.plan_1flip(d2000, 3_637_780 / engine.FLIP_L2_SHARE + 1) == (True, False)
+    assert engine.plan_1flip(d2000, 3_637_779 / engine.FLIP_L2_SHARE) == (True, True)
+    # unit weights at G70's size: K4's word lists fit, but its chain tile
+    # leaves one per SM, so K7 runs the noisy sweep (as in the JAX package,
+    # which streamed the tables for VMEM; K7 was 1.8-3.7 times faster than
+    # K4 there on the H100); K5's 12.5 MB of planes fit
     g70 = Graph.from_edge_list(10000, [(a, b, 1.0) for a, b in gnm_edges(10000, 9999, seed=70)], "G70like")
-    assert engine.plan_sweep(g70, l2) == (False, None) and engine.plan_1flip(g70, l2) == (False, False)
+    assert tsw.word_list_bytes(g70) <= engine.SWEEP_L2_SHARE * l2
+    assert engine.plan_sweep(g70, l2) == (True, engine.LIST_STAGE_ENTRIES)
+    assert engine.plan_1flip(g70, l2) == (False, False)
+    # K4's rule charges the word lists it reads: G22-like's 556,676 bytes
+    # (34,292 step words of 16 bytes, and the offsets), not its 1.5 MB of
+    # mask planes; K5's charges its planes
+    t22 = tsw.PackedSweepTables.build(g22, "cpu")
+    assert tsw.word_list_bytes(g22) == t22.word_entries.numel() * 4 + t22.word_offsets.numel() * 4 == 556_676
+    assert engine.plan_sweep(g22, 556_676 / engine.SWEEP_L2_SHARE + 1) == (False, None)
+    assert engine.plan_sweep(g22, 556_675 / engine.SWEEP_L2_SHARE) == (True, None)
+    assert engine.plan_1flip(g22, 2000 * 63 * 4 / engine.FLIP_L2_SHARE + 1) == (False, False)
+    assert engine.plan_1flip(g22, (2000 * 63 * 4 - 1) / engine.FLIP_L2_SHARE) == (True, True)
     # K7's two stages of list entries fit a block's shared memory
     assert build.header_constant("kChainsPerBlock") == 128
     assert 2 * engine.LIST_STAGE_ENTRIES * 8 <= build.header_constant("kMaxSmem") == 227 * 1024
@@ -215,15 +234,36 @@ def test_k6_runs_while_its_tile_leaves_enough_per_sm(n, tiles, k7):
     assert engine.plan_sweep(g, engine.H100_L2_BYTES) == (True, engine.LIST_STAGE_ENTRIES if k7 else None)
 
 
+# (N, K4): on unit weights K4 runs while its chain tile (K6's) leaves
+# K6_MIN_TILES_PER_SM tiles per SM, K7 beyond, however small its word lists;
+# at 60,000 nodes not even 32 chains of K4 fit a block's shared memory
+@pytest.mark.parametrize("n, k4", [(2000, True), (3000, True), (4000, False), (10000, False), (20000, False),
+                                   (60000, False)])
+def test_k4_runs_while_its_tile_leaves_enough_per_sm(n, k4):
+    g = Graph.from_edge_list(n, [(a, b, 1.0) for a, b in gnm_edges(n, 2 * n, seed=n)], f"U{n}")
+    assert tsw.word_list_bytes(g) <= engine.SWEEP_L2_SHARE * engine.H100_L2_BYTES
+    assert (engine.k6_tiles_per_sm(n) >= engine.K6_MIN_TILES_PER_SM) == k4
+    assert engine.plan_sweep(g, engine.H100_L2_BYTES) == ((False, None) if k4 else (True, engine.LIST_STAGE_ENTRIES))
+    assert engine.plan_1flip(g, engine.H100_L2_BYTES).weighted == (n > 10000)  # K5 while its planes fit
+
+
 def test_engines_build_and_run_on_cpu():
     g = _pair(40, 7, 6, False)[1]
     eng = engine.FusedSweepEngine.build(g, "cpu")
     assert eng.weighted and eng.node_chunk is None and isinstance(eng.tables, twsw.WeightedSweepTables)
     bits = torch.from_numpy(np.random.default_rng(3).random((8, 40)) < 0.5)
     assert torch.equal(eng.sweep(9, bits, 2), twsw.mcpg_sweep_weighted_fused(9, bits, eng.tables, 2))
-    flip = engine.FlipSweepEngine.build(g, "cpu")
-    assert flip.weighted and not flip.levels and isinstance(flip.tables, twsw.WeightedAdjPlanes)
-    assert torch.equal(flip.sweep(bits), twsw.sweep_1flip_weighted(bits, flip.tables))
+    flip = engine.FlipSweepEngine.build(g, "cpu")  # a few neighbours a node: K8b
+    assert flip.weighted and flip.levels and isinstance(flip.tables, twsw.WeightedAdjPlanes)
+    assert torch.equal(flip.sweep(bits), twsw.sweep_1flip_weighted(bits, flip.tables, levels=True))
+    # every pair of 90 nodes (89 neighbours a node): K8a
+    rng = np.random.default_rng(4)
+    dense = Graph.from_edge_list(90, [(a, b, float(rng.integers(1, 8) * rng.choice((-1, 1))))
+                                      for a in range(90) for b in range(a + 1, 90)], "K90")
+    flip_d = engine.FlipSweepEngine.build(dense, "cpu")
+    assert flip_d.weighted and not flip_d.levels
+    bits_d = torch.from_numpy(np.random.default_rng(5).random((8, 90)) < 0.5)
+    assert torch.equal(flip_d.sweep(bits_d), twsw.sweep_1flip_weighted(bits_d, flip_d.tables, levels=True))
     g_pm = _pm1_graph()
     unit, unit_flip = engine.FusedSweepEngine.build(g_pm, "cpu"), engine.FlipSweepEngine.build(g_pm, "cpu")
     assert not unit.weighted and isinstance(unit.tables, tsw.PackedSweepTables)
