@@ -9,7 +9,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                and is held bit for bit against its plain PyTorch version:
                K2-K5 on the G22-like graph (N = 2000; 2^20 chains for the
                sampler and the sweep, 2048 for the warm start's 1-flip
-               sweep), K6 on W22-like and K7 on W70-like (the plain sweep
+               sweep); K5 (signed neighbour lists in a level schedule,
+               copied into shared memory) also on a +-1 G22-like, on Hub3000's topology with unit and +-1
+               weights and on a 10,000-node unit path, each against the
+               sequential plain sweep, the f32 sweep and K8b; the engine's
+               1-flip choice on D2000-like's topology with unit weights
+               against K5's plain version; K6 on W22-like and K7 on W70-like (the plain sweep
                on 2048 chains and 2 sweeps); K4 in both modes on Hub3000's
                topology with unit and +-1 weights (a hub's list of many
                words, isolated nodes' empty lists); the 1-flip sweeps K8a
@@ -30,7 +35,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                graph on 2000 nodes (s and vs bit for bit, gains as values);
                K11 and K12 on 8192 chains x 1024 rounds of G22-like (the MH
                shapes of bench.py), against each other on probs of the
-               2^-16 grid, and K11's marginals against the policy;
+               2^-16 grid, and K11's marginals against the policy; K11 (its
+               stream staged through a shared-memory ring by bulk copies)
+               also on 1001 chains x 1000 rounds with nodes -1 and N among
+               the proposals, at N = 10000, and at N = 52,000, 55,000 and
+               58,000, where its ring shrinks to 2 stages, 1 and none;
   3. stream  — K2, the injected-randomness twin of K3, which no solver path
                runs: `mh_sample_stream` alone on the main path's shapes, its
                launches counted in that run;
@@ -55,8 +64,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                (K8a) must be the only packed sweep launched, and K8a must
                have launched on some solver path;
   7. profile — device time by kernel of one --fast round on G22-like,
-               W22-like and W70-like, and of the W70-like solve's warm
-               start (its local-search rounds end in K8b; torch.profiler);
+               W22-like and W70-like, and of the G22-like and W70-like
+               solves' warm starts (their local-search rounds end in K5 and
+               K8b; torch.profiler);
   8. l2a     — `solve_maxcut_l2a` on G22-like at the default widths of
                L2AConfig (256 sims x 8 repeats, top_k 16, 2 searchers, 4
                multi-flip iterations, embed 64, 4 heads, 2 encoder layers,
@@ -69,13 +79,17 @@ Phases (each prints its seconds; any failure exits non-zero):
  10. time    — kernel, plain-version and bound times at each path's shapes
                (K7's with its transposes; K8a on D2000-like, the d2000
                phase's graph and chains), K6 on G22-like's own lists beside
-               K4, and K8a beside K8b on D2000-like and W22-like (forced); a bit-plane sweep's bound counts the
+               K4, K8b beside K5 on G22-like, and K8a beside K8b on
+               D2000-like and W22-like (forced); a bit-plane sweep's bound counts the
                popcounts its tables' non-zero words need and, per warp and
                step, reads of those words and of the distinct chain words
                they meet (K8a's bytes: its word entries); K6's, K7's and
                K8b's bound is the least of that and the neighbour-list
                reckoning (a bit extract and a multiply-add per neighbour,
-               reads of the distinct neighbour words and of the list);
+               reads of the distinct neighbour words and of the list), and
+               K5's too; K11's chain floor (its dependent rounds at an
+               assumed shared-memory latency) is printed on a line of its
+               own, not in the kernels line;
                K10's counts one f32 FMA per listed neighbour of each
                accepted flip, its bytes the state in and out and the lists;
                `dense_bound_ms` (every word; K10: every rank-1 update over
@@ -132,6 +146,13 @@ W70_CHAINS, W70_REPEATS = 768, 32  # gset_70's C, with R cut from 288 to 32
 K10_F32_OPS = 1
 K10_STEP_OPS = 2  # per (chain, node): the compare and the add to the cut
 K11_OPS = 10 + 3  # per proposal: node/word/bit decode, read bit, flip; q, u*q, 1-q in f32
+# K11's chain floor: each chain's rounds depend on each other through its
+# state, and a round makes 3 dependent shared-memory accesses (the ring's
+# node, the state word, its store), each taken at an assumed 30 cycles, a
+# published microbenchmark figure for Hopper's shared memory that this
+# script does not measure
+K11_CHAIN_ACCESSES = 3
+SMEM_LATENCY_CYCLES = 30
 MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
 FORCED_STAGE = 100  # K7's list entries per stage in the checks that force it small
 FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_levels"}  # by FlipPlan.levels
@@ -379,14 +400,51 @@ def main() -> int:
                       out[:B_PLAIN_W], plain, errs, "mcpg_sweep")
     del t_h, sub_h, noise_h, bits_h
 
+    # K5 (signed lists in a level schedule, in shared memory) on G22-like, a
+    # +-1 G22-like, Hub3000's topology with unit and
+    # +-1 weights and a 10,000-node unit path (10,000 levels), each against
+    # the sequential plain sweep, the f32 sweep and K8b on the same weights
     warm = bits[:B_WARM].contiguous()
-    out = sw.sweep_1flip_packed(warm, adj)
-    require_equal("K5 sweep_1flip_packed", out, sw._sweep_1flip_plain(warm, adj), errs, "sweep_1flip")
     env32 = MaxcutEnv(g, dev)
-    f32_bits, f32_vs = env32.sweep_1flip(warm, env32.obj(warm))
-    require_equal("K5 vs the f32 incremental-gain sweep", out, f32_bits, errs, "sweep_1flip")
-    if not torch.equal(env32.obj(out), f32_vs):
-        raise AssertionError("K5: cut values differ from the f32 sweep's")
+    rng_pm = torch.Generator().manual_seed(3)
+    signs = (torch.randint(0, 2, (g.num_edges,), generator=rng_pm) * 2 - 1).numpy().astype("float32")
+    g_pm = Graph(g.num_nodes, g.edges, signs, "G22like_pm1")
+    path = build_path_graph()
+    k5_checks = [(g, adj, warm, ""), (g_pm, None, warm, "")]
+    k5_checks += [(Graph(gk.num_nodes, gk.edges, wk.astype("float32"), nk), None, None, "")
+                  for gk, wk, nk in ((hub, np.ones_like(hub.weights), "Hub3000unit"),
+                                     (hub, np.sign(hub.weights), "Hub3000pm1"),
+                                     (path, np.ones_like(path.weights), "Path10000unit"))]
+    for gk, adj_k, xk, note in k5_checks:
+        adj_k = adj_k if adj_k is not None else sw.pack_adjacency(gk, dev)
+        xk = xk if xk is not None else torch.rand(W70_CHAINS, gk.num_nodes, generator=gen, device=dev) < 0.5
+        lv = adj_k.levels
+        print(f"  K5 on {gk.name} {note}: {lv.positions} nodes with a neighbour in {lv.depth} levels, "
+              f"{lv.num_entries} entries, a table of {lv.table_bytes} bytes; 1-flip plan "
+              f"{engine.plan_1flip(gk, engine.l2_bytes(dev))}", flush=True)
+        out = sw.sweep_1flip_packed(xk, adj_k)
+        name = f"K5 on {gk.name} {note}".rstrip()
+        require_equal(f"{name} vs the sequential plain sweep", out, sw._sweep_1flip_plain(xk, adj_k), errs,
+                      "sweep_1flip")
+        env_k = env32 if gk is g else MaxcutEnv(gk, dev)
+        f32_bits, f32_vs = env_k.sweep_1flip(xk, env_k.obj(xk))
+        require_equal(f"{name} vs the f32 incremental-gain sweep", out, f32_bits, errs, "sweep_1flip")
+        if not torch.equal(env_k.obj(out), f32_vs):
+            raise AssertionError(f"{name}: cut values differ from the f32 sweep's")
+        require_equal(f"{name} vs K8b", out,
+                      wsw.sweep_1flip_weighted(xk, wsw.WeightedAdjPlanes.build(gk, dev), levels=True), errs,
+                      "sweep_1flip")
+        del env_k, adj_k, lv
+    # the engine's 1-flip choice on a dense unit graph (D2000-like's topology)
+    d2000 = build_d2000_like()
+    d_unit = Graph(d2000.num_nodes, d2000.edges, np.ones(d2000.num_edges, np.float32), "D2000unit")
+    flip_du = engine.FlipSweepEngine.build(d_unit, dev)
+    kernel_du = FLIP_KERNELS[flip_du.levels] if flip_du.weighted else "sweep_1flip"
+    print(f"  {d_unit.name}: {2 * d_unit.num_edges / d_unit.num_nodes:.1f} neighbours a node, K5 table at most "
+          f"{sw.level_table_bytes(d_unit)} bytes; the engine runs {kernel_du}", flush=True)
+    require_equal(f"the engine's 1-flip sweep ({kernel_du}) on {d_unit.name} vs K5's plain version",
+                  flip_du.sweep(warm), sw._sweep_1flip_plain(warm, sw.pack_adjacency(d_unit, dev)), errs, kernel_du)
+    del flip_du
 
     # K6-K8b on the weighted stand-ins, at their paths' shapes
     w22, w70 = build_w22_like(), build_w70_like()
@@ -438,9 +496,6 @@ def main() -> int:
                       wsw.mcpg_sweep_weighted_fused(31, bits_h, th, num_sweeps=3, node_chunk=chunk), k6_h, errs,
                       "mcpg_sweep_weighted_chunked")
     del th, sub_h, plain_h, bits_h, k6_h, noise_h
-    rng_pm = torch.Generator().manual_seed(3)
-    signs = (torch.randint(0, 2, (g.num_edges,), generator=rng_pm) * 2 - 1).numpy().astype("float32")
-    g_pm = Graph(g.num_nodes, g.edges, signs, "G22like_pm1")
     require_equal("K6 fused vs K4 fused on G22like with random +-1 signs",
                   wsw.mcpg_sweep_weighted_fused(5, bits, wsw.WeightedSweepTables.build(g_pm, dev), num_sweeps=S),
                   sw.mcpg_sweep_fused(5, bits, sw.PackedSweepTables.build(g_pm, dev), num_sweeps=S), errs,
@@ -448,7 +503,6 @@ def main() -> int:
     # K8a on W22-like (forced), Hub3000 and D2000-like; K8b on the same and
     # on W70-like and a 10,000-node path (a schedule of 10,000 levels); each
     # against the sequential plain sweep, the other kernel and the f32 sweep
-    path, d2000 = build_path_graph(), build_d2000_like()
     flip_checks = ((w22, B_WARM, (False, True)), (w70, W70_CHAINS, (True,)), (hub, W70_CHAINS, (False, True)),
                    (path, W70_CHAINS, (True,)), (d2000, B_WARM, (False, True)))
     for gw, b_warm, modes in flip_checks:
@@ -494,7 +548,9 @@ def main() -> int:
                           "sweep_1flip_f32")
     del env_k, out_k
 
-    # K11 and K12 at the MH shapes of bench.py
+    # K11 and K12 at the MH shapes of bench.py; K11 also at 1001 chains x 1000
+    # rounds (neither a multiple of its tile, of 4 or of its ring's chunk)
+    # with nodes -1 and N among the proposals, and at N = 10000
     mh_bits = bits[:MH_CHAINS].contiguous()
     mh_words = codec.pack_bits(mh_bits)
     nodes, u = mh.make_round_randoms(gen, MH_ROUNDS, MH_CHAINS, n)
@@ -502,6 +558,30 @@ def main() -> int:
     k11_out = mh.mh_sample_onehot(nodes, u, probs, mh_bits)
     require_equal("K11 mh_sample_onehot", k11_out,
                   codec.unpack_bits(mh.mh_onehot_plain(nodes, u, probs, mh_words, n), n), errs, "mh_sample_onehot")
+    nd, uu = mh.make_round_randoms(gen, 1000, 1001, n)
+    pick = torch.rand(1000, 1001, generator=gen, device=dev)
+    nd = torch.where(pick < 0.05, -1, torch.where(pick > 0.95, n, nd)).to(torch.int32)
+    xb = bits[:1001].contiguous()
+    require_equal("K11 on 1001 chains x 1000 rounds, nodes -1 and N mixed in", mh.mh_sample_onehot(nd, uu, probs, xb),
+                  codec.unpack_bits(mh.mh_onehot_plain(nd, uu, probs, codec.pack_bits(xb), n), n), errs,
+                  "mh_sample_onehot")
+    n10 = 10000
+    p10 = torch.rand(n10, generator=gen, device=dev) * 0.6 + 0.2
+    x10 = torch.rand(MH_CHAINS, n10, generator=gen, device=dev) < 0.5
+    nd, uu = mh.make_round_randoms(gen, MH_ROUNDS, MH_CHAINS, n10)
+    require_equal(f"K11 at N = {n10}", mh.mh_sample_onehot(nd, uu, p10, x10),
+                  codec.unpack_bits(mh.mh_onehot_plain(nd, uu, p10, codec.pack_bits(x10), n10), n10), errs,
+                  "mh_sample_onehot")
+    # where K11's ring shrinks beside a 32-chain tile: 2 stages at N = 52,000,
+    # 1 at 55,000, and at 58,000 none (the stream read from device memory)
+    for n_big in (52000, 55000, 58000):
+        p_big = torch.rand(n_big, generator=gen, device=dev) * 0.6 + 0.2
+        x_big = torch.rand(130, n_big, generator=gen, device=dev) < 0.5
+        nd, uu = mh.make_round_randoms(gen, 300, 130, n_big)
+        require_equal(f"K11 at N = {n_big} (130 chains x 300 rounds)", mh.mh_sample_onehot(nd, uu, p_big, x_big),
+                      codec.unpack_bits(mh.mh_onehot_plain(nd, uu, p_big, codec.pack_bits(x_big), n_big), n_big),
+                      errs, "mh_sample_onehot")
+    del x10, p10, xb, pick, p_big, x_big
     k12_out = mh.mh_sample_packed(nodes, acc2, mh_bits)
     require_equal("K12 mh_sample_packed", k12_out,
                   codec.unpack_bits(mh.mh_packed_plain(nodes, acc2, mh_words, n), n), errs, "mh_sample_packed")
@@ -658,20 +738,22 @@ def main() -> int:
     cfg70 = weighted_cfgs["W70like"]
     profile_round(w70, cfg70, torch.rand(cfg70.total_mcmc_num * cfg70.repeat_times, w70.num_nodes, generator=gen,
                                          device=dev) < 0.5)
-    # the W70-like solve's warm start, as solve_maxcut_mcpg runs it: local
-    # search rounds on C chains, each ending in a 1-flip sweep (K8b)
-    env70 = MaxcutEnv(w70, dev, packed_sweep=True)
-    xs70 = env70.random_xs(gen, cfg70.total_mcmc_num)
+    # the G22-like and W70-like solves' warm starts, as solve_maxcut_mcpg runs
+    # them: local search rounds on C chains, each ending in a 1-flip sweep
+    # (K5 on G22-like, K8b on W70-like)
+    for gr, cfg_r in ((g, fast_cfg), (w70, cfg70)):
+        env_r = MaxcutEnv(gr, dev, packed_sweep=True)
+        xs_r = env_r.random_xs(gen, cfg_r.total_mcmc_num)
 
-    def warm_start():
-        xs, vs = xs70, env70.obj(xs70)
-        for _ in range(cfg70.warmup_ls_rounds):
-            xs, vs = env70.local_search(gen, xs, vs)
+        def warm_start():
+            xs, vs = xs_r, env_r.obj(xs_r)
+            for _ in range(cfg_r.warmup_ls_rounds):
+                xs, vs = env_r.local_search(gen, xs, vs)
 
-    warm_start()
-    profile_device(f"the W70like solve's warm start ({cfg70.warmup_ls_rounds} local-search rounds on "
-                   f"{cfg70.total_mcmc_num} chains)", warm_start)
-    del env70, xs70
+        warm_start()
+        profile_device(f"the {gr.name} solve's warm start ({cfg_r.warmup_ls_rounds} local-search rounds on "
+                       f"{cfg_r.total_mcmc_num} chains)", warm_start)
+        del env_r, xs_r
     phase("profile", t0)
 
     # 8. L2A on G22-like at the default widths ------------------------------
@@ -774,6 +856,11 @@ def main() -> int:
     t1_g22, t2_g22 = sw._noisy_thresholds(tw_g22, 0.25)
     k5_planes = torch.stack([adj.pos] + ([adj.neg] if adj.neg is not None else []))
     k5_work = scan_work(B_WARM, 1, (nonzero(k5_planes), 0), (k5_planes.numel(), 0), (plane_reads(k5_planes), 0))
+    lv22 = adj.levels
+    k5_layout = lv22.layout
+    aw22 = wsw.WeightedAdjPlanes.build(g, dev)  # G22-like's natural-order lists, for the list reckoning and K8b
+    k5_list_work = (2 * B_WARM * w * 4 + lv22.table_bytes, NBR_INT_OPS * B_WARM * lv22.num_entries + B_WARM * n * STEP_OPS,
+                    -(-B_WARM // 32) * list_reads(aw22.offsets, aw22.entries))
     rows = [
         dict(name="mh_sample_stream", kernel=mh.MH_STREAM, launches=stream_counts["mh_sample_stream"],
              run=lambda: mh.MH_STREAM.launch(stream, words, B, w, ROUNDS),
@@ -793,9 +880,15 @@ def main() -> int:
              yardstick=("k6_on_the_same_graph_ms",
                         lambda: wsw.launch_sweep(tw_g22, words, t1_g22, t2_g22, None, 777, 0.25, S, None))),
         dict(name="sweep_1flip", kernel=sw.SWEEP_1FLIP, launches=fast_counts["sweep_1flip"],
-             run=lambda: sw.SWEEP_1FLIP.launch(adj.pos, None, adj.deg_pos, None, warm_words, B_WARM, w, n),
+             run=lambda: sw.SWEEP_1FLIP.launch(lv22.table, k5_layout[2], lv22.depth, k5_layout[0], k5_layout[1],
+                                               warm_words, B_WARM, w),
              plain=lambda: sw._sweep_1flip_plain(warm, adj), plain_chains=B_WARM, reps=10,
-             bytes=2 * B_WARM * w * 4 + k5_planes.numel() * 4 + n * 4, work=k5_work, step_ops=B_WARM * n * STEP_OPS),
+             bytes=2 * B_WARM * w * 4 + k5_planes.numel() * 4 + n * 4, work=k5_work, step_ops=B_WARM * n * STEP_OPS,
+             list_work=k5_list_work,
+             yardstick=("k8b_on_the_same_graph_ms",
+                        lambda: wsw.WSWEEP_1FLIP_LEVELS.launch(aw22.offsets, aw22.entries, aw22.level_nodes,
+                                                               aw22.level_offsets, aw22.wdeg, warm_words, B_WARM, w,
+                                                               aw22.depth))),
     ]
 
     def weighted_sweep_row(name, kernel, tab, wds, chunk, launches):
@@ -924,10 +1017,11 @@ def main() -> int:
                   B_L2A * n * n * K10_F32_OPS + B_L2A * n * K10_STEP_OPS),
              dense_bytes=state_bytes + n * n * 4, list_bytes_read=listed22 * 8),
         dict(name="mh_sample_onehot", kernel=mh.MH_ONEHOT, launches=injected_counts["mh_sample_onehot"],
-             run=lambda: mh.MH_ONEHOT.launch(nodes, u, probs, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
+             run=lambda: mh.MH_ONEHOT.launch(nodes, u, probs, mh_w, MH_CHAINS, MH_CHAINS, w_mh, n, MH_ROUNDS),
              plain=lambda: mh.mh_onehot_plain(nodes, u, probs, mh_w, n), plain_chains=MH_CHAINS, reps=10,
              bytes=2 * MH_CHAINS * w_mh * 4 + MH_ROUNDS * MH_CHAINS * 8 + n * 4,
-             step_ops=MH_ROUNDS * MH_CHAINS * K11_OPS),
+             step_ops=MH_ROUNDS * MH_CHAINS * K11_OPS,
+             chain_floor=True),
         dict(name="mh_sample_packed", kernel=mh.MH_PACKED, launches=injected_counts["mh_sample_packed"],
              run=lambda: mh.MH_PACKED.launch(nodes, acc2, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
              plain=lambda: mh.mh_packed_plain(nodes, acc2, mh_w, n), plain_chains=MH_CHAINS, reps=10,
@@ -974,6 +1068,10 @@ def main() -> int:
                   f"{row['bytes'] / 1e6:.1f} MB of state and lists")
         if "plain_sweeps" in row:
             kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
+        if row.get("chain_floor"):
+            floor_ms = 1e3 * MH_ROUNDS * K11_CHAIN_ACCESSES * SMEM_LATENCY_CYCLES / BOOST_CLOCK_HZ
+            print(f"  {row['name']}: chain floor {floor_ms:.4f} ms, assumed, not measured ({MH_ROUNDS} dependent "
+                  f"rounds of {K11_CHAIN_ACCESSES} shared-memory accesses at an assumed {SMEM_LATENCY_CYCLES} cycles)")
         if "yardstick" in row:
             key, fn = row["yardstick"]
             kernels[-1][key] = cuda_ms(fn, row["reps"])

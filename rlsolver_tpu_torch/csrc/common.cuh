@@ -104,13 +104,66 @@ inline int chains_per_block(int W, size_t* smem, size_t extra = 0) {
   return 0;
 }
 
+// Allows `smem` bytes of dynamic shared memory for `kernel` where it is
+// above the 48 KB that needs no opt-in.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem > 48 * 1024) return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaSuccess;
+}
+
 template <typename K>
 inline cudaError_t prepare(K kernel, int W, int* threads, size_t* smem, size_t extra = 0) {
   *threads = chains_per_block(W, smem, extra);
   if (*threads == 0) return cudaErrorInvalidValue;
-  if (*smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  return cudaSuccess;
+  return allow_smem(kernel, *smem);
+}
+
+// Hopper's bulk copies (the TMA unit) from device memory into shared memory,
+// completing on an mbarrier in shared memory. One thread issues a copy and
+// the barrier counts its bytes; waiting threads spin on the barrier's phase.
+// Addresses and sizes of a copy are multiples of 16 bytes.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Sets up a barrier that completes a phase after `count` arrivals (and the
+// bytes any arrival announced); by one thread, before a __syncthreads.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives on the barrier and announces `bytes` more to come from copies.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (phases count from
+// 0, so the k-th use of a barrier waits for parity k & 1).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copies `bytes` from device memory to shared memory; the barrier counts
+// them when they have landed.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
 }
 
 }  // namespace rl

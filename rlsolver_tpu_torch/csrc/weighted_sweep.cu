@@ -467,10 +467,8 @@ cudaError_t launch_warps(Fn kernel, int B, int W, cudaStream_t st, const Args& a
   size_t smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t);
   for (; chains > 1 && smem > rl::kMaxSmem; smem = (size_t)chains * rl::smem_stride(W) * sizeof(uint32_t)) chains /= 2;
   if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = rl::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   if (B > 0) kernel<<<(B + chains - 1) / chains, 32 * chains, smem, st>>>(a);
   return cudaGetLastError();
 }
@@ -502,11 +500,8 @@ extern "C" int wsweep_chunked(const int32_t* nodes, const float* thr1, const flo
                                     N, S);
   const size_t smem = 2 * (size_t)stage * sizeof(int2);
   if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(wsweep_chunked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = rl::allow_smem(wsweep_chunked_kernel, smem);
+  if (e != cudaSuccess) return e;
   const int threads = rl::kChainsPerBlock;
   if (B > 0) wsweep_chunked_kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(a, stage);
   return cudaGetLastError();

@@ -7,10 +7,12 @@ reference's `local_search_inplace` (`env_L2A.py:87-116` in RLSolver): noisy
 top-k multi-flips with elitist accepts, then a greedy 1-flip sweep.
 
 `sweep_1flip` runs a packed kernel when the env is built with
-`packed_sweep=True`, as `engine.FlipSweepEngine` picks: K5 on {0, +-1}-weight
-graphs; on other integer weights K8a (one warp a chain over each row's
-non-zero bit-plane words) where rows are dense, else K8b (one warp a chain
-over each node's neighbour list, level by level of a schedule). Otherwise
+`packed_sweep=True`, as `engine.FlipSweepEngine` picks: K5 (one warp a chain
+over each node's signed neighbour list, level by level of a schedule, from a
+copy of the table in shared memory) on sparse {0, +-1}-weight graphs whose
+table fits a block's shared memory; else K8a (one warp a chain over each
+row's non-zero bit-plane words) where rows are dense, or K8b (K5's walk over
+{j, w} lists in device memory). Otherwise
 (no `packed_sweep`, or weights that are not integers or |w| >= 2^15) it runs
 the f32 sweep with rank-1 gain updates, as the JAX package does: on the card
 the kernel K10 (`ops/kernels/sweep_kernel.py`), which walks each accepted

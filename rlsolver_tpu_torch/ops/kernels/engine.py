@@ -23,22 +23,45 @@ K7 was level with K4 or faster in every cell below 4 tiles (1.3-3.7 times
 at 262,144 chains, 1.8-2.1 times at one tile), and from 4 tiles K4 took
 0.67-1.29 times K7's time.
 
-The 1-flip sweep: K5 when the weights allow it and its planes fit. On other
-integer weights both K8a and K8b run one warp a chain; K8a walks the N
-nodes in order, its lanes splitting each row's non-zero bit-plane words (a
-popcount serves up to 32 neighbours), and K8b walks a level schedule, its
-lanes splitting each level's nodes and each lane a node's whole neighbour
-list. A step of K8a costs about the same whatever the row's length up to
-the 32 x 8 entries its lanes hold, while K8b's work grows with each list
-and its schedule's depth; so K8a runs where rows are dense,
-`K8A_MIN_NEIGHBOURS` neighbours a node on average or more, and its word
-entries fit `FLIP_L2_SHARE` of L2; K8b elsewhere.
-`scripts/torch_engine_share.py` timed the two at 768 and 2048 chains
-(PERF.md): K8a took 0.69-0.99 ms at N = 2000 from 2 to 200 neighbours a
-node, K8b 0.09 ms at 2 and 4.7 ms at 200; K8b was the faster at 60
-neighbours (K8a over K8b 1.01 and 1.29), the two split at 70 (0.85 and
-1.04), and K8a was the faster from 80 (0.68 and 0.88), 4.8-6.1 times at
-200 and 28-29 times at 1000.
+The 1-flip sweep. K5 ({0, +-1} weights), K8a and K8b all run one warp a
+chain. K5 and K8b walk a level schedule, the lanes splitting each level's
+nodes and each lane a node's whole neighbour list; K5 reads its signed
+lists from a copy of the whole table in each block's shared memory
+(`mcpg_sweep.LevelLists`), K8b its {j, w} lists from device memory. K8a
+walks the N nodes in order, its lanes splitting each row's non-zero
+bit-plane words (a popcount serves up to 32 neighbours). A step of K8a
+costs about the same whatever the row's length up to the 32 x 8 entries its
+lanes hold, so K8a's time grows with N, while a level schedule's work grows
+with each list and its depth (D2000-like, 200 neighbours a node: 341
+levels). So a {0, +-1} graph goes to K5 while it has at most 2^15 nodes,
+its table and one chain's words fit a block's shared memory (`k5_fits`)
+and its rows are sparse, fewer than `K5_MAX_NEIGHBOURS` neighbours a node on
+average. Any other graph goes to K8a where rows are dense and K8a's word
+entries fit `FLIP_L2_SHARE` of L2: from `K8A_MIN_NEIGHBOURS` neighbours a
+node, and on {0, +-1} graphs of at most `K8A_SMALL_NODES` nodes from
+`K5_MAX_NEIGHBOURS` (exact on +-1 weights as one plane); to K8b elsewhere.
+`scripts/torch_engine_share.py` timed the three on unit weights at 768 and
+2048 chains (PERF.md, NVIDIA H100 80GB HBM3, 700 W). Up to 50 neighbours
+a node, wherever its table fits, K5 was the fastest in 21 of 22 cells: at
+N = 2000 (where the table fits up to about 52) 0.08-0.42 ms against K8a's
+0.68-0.98 and K8b's 0.11-0.60 (the exception: 2 neighbours at 768
+chains, 0.119 against K8b's 0.109, where another call measured 0.051
+against 0.096), at N = 16,000 and 2 neighbours 0.23 / 0.44 ms against
+K8b's 0.66 / 0.67. Against K8a at N = 500 and N = 1000 (768 / 2048 chains, K5
+over K8a): 0.67 / 0.64 and 0.44 / 0.43 at 40 neighbours, 0.89 / 0.90 and
+0.58 / 0.57 at 50, 0.99 / 1.08 and 0.68 / 0.93 at 60, 1.29 / 1.42 and
+0.84 / 1.11 at 70, 1.49 / 1.71 and 0.94 / 1.28 at 80, up to 8.4 at 200
+(N = 500); K8b was slower than K8a in all of these cells from 60 (1.5-12
+times). Where the table does not fit, on unit weights (K8a over K8b): at
+N = 2000 0.98 / 1.26 at 60, 0.83 / 1.08 at 70, 0.66 / 0.89 at 80; at
+N = 4000 1.32 / 1.88 at 60, 1.14 / 1.33 at 70, 1.09 / 1.25 at 80, so there
+K8b stays the faster at 80, where the rule, set at N = 2000, takes K8a
+(PERF.md §7). On other integer
+weights K8a and K8b were timed at N = 2000: K8a
+took 0.69-0.99 ms from 2 to 200 neighbours a node, K8b 0.09 ms at 2 and
+4.7 ms at 200; K8b was the faster at 60 neighbours a node (K8a over K8b 1.01 and
+1.29), the two split at 70 (0.85 and 1.04), and K8a was the faster from 80
+(0.68 and 0.88), 4.8-6.1 times at 200 and 28-29 times at 1000.
 
 The rule reads only sizes and the edge list, so `plan_sweep` and
 `plan_1flip` can be asked about a graph without building its tables.
@@ -60,13 +83,20 @@ from rlsolver_tpu_torch.ops.kernels.codec import num_words
 # NVIDIA H100 SXM: 50 MB of L2 (data sheet), which the CUDA runtime reports
 # as 52,428,800 bytes; used when the device is the CPU (tests, planning).
 H100_L2_BYTES = 52_428_800
-# The share of L2 that K4's word lists or K5's planes or K8a's word entries
-# may take (see above).
+# The share of L2 that K4's word lists or K8a's word entries may take (see
+# above).
 SWEEP_L2_SHARE = 0.8
 FLIP_L2_SHARE = 0.7
 # K8a from this many neighbours a node on average (2 |E| / N), else K8b
 # (measured: K8a was the faster at 768 and 2048 chains from 80).
 K8A_MIN_NEIGHBOURS = 80
+# K5 below this many neighbours a node on average, while its table fits
+# (measured: K5 was the faster below 60 at 768 and 2048 chains, K8a from 70).
+K5_MAX_NEIGHBOURS = 60
+# On {0, +-1} weights, K8a from K5_MAX_NEIGHBOURS on graphs of at most this
+# many nodes (measured: K8a beat K8b from 60 neighbours a node at N = 500
+# and 1000, not at N = 2000 or 4000).
+K8A_SMALL_NODES = 1000
 # K4 or K6 while their chain tile leaves this many tiles per SM, else K7
 # (measured).
 K6_MIN_TILES_PER_SM = 4
@@ -111,15 +141,18 @@ class FlipPlan(NamedTuple):
 
 
 def _unit_fits(graph: Graph, fit_bytes: float, table_bytes) -> bool:
-    """Whether K4/K5 take the graph: weights in {0, +-1}, and the tables the
+    """Whether K4 takes the graph: weights in {0, +-1}, and the tables the
     kernel reads (`table_bytes(graph)`) fit."""
     return sw.is_unit_weight(graph) and table_bytes(graph) <= fit_bytes
 
 
-def _k5_plane_bytes(graph: Graph) -> int:
-    """K5's positive plane [N, W], and its negative one on a signed graph."""
-    n = graph.num_nodes
-    return (2 if (graph.weights < 0).any() else 1) * n * num_words(n) * 4
+def k5_fits(graph: Graph) -> bool:
+    """Whether K5 takes the graph: weights in {0, +-1}, at most
+    `K5_MAX_NODES` nodes, and its table (at its largest,
+    `level_table_bytes`) and one chain's words fit a block's shared
+    memory."""
+    return (sw.is_unit_weight(graph) and graph.num_nodes <= sw.K5_MAX_NODES
+            and sw.level_smem_bytes(sw.level_table_bytes(graph), graph.num_nodes) <= build.header_constant("kMaxSmem"))
 
 
 def plan_sweep(graph: Graph, l2: int) -> Plan:
@@ -133,12 +166,17 @@ def plan_sweep(graph: Graph, l2: int) -> Plan:
 
 
 def plan_1flip(graph: Graph, l2: int) -> FlipPlan:
-    """K5, K8a or K8b for the greedy 1-flip sweep."""
-    if _unit_fits(graph, FLIP_L2_SHARE * l2, _k5_plane_bytes):
+    """K5, K8a or K8b for the greedy 1-flip sweep: K5 on {0, +-1} weights
+    below `K5_MAX_NEIGHBOURS` neighbours a node where it fits; else K8a from
+    `K8A_MIN_NEIGHBOURS` (from `K5_MAX_NEIGHBOURS` on {0, +-1} weights and at
+    most `K8A_SMALL_NODES` nodes) while its word entries fit L2; else K8b."""
+    n, neighbours = graph.num_nodes, 2 * graph.num_edges
+    unit = sw.is_unit_weight(graph)
+    if unit and neighbours < K5_MAX_NEIGHBOURS * n and k5_fits(graph):
         return FlipPlan(False, False)
     wsw.weight_planes(graph)  # raises on weights no packed kernel takes
-    dense = 2 * graph.num_edges >= K8A_MIN_NEIGHBOURS * graph.num_nodes
-    return FlipPlan(True, not (dense and wsw.word_entry_bytes(graph) <= FLIP_L2_SHARE * l2))
+    k8a_from = K5_MAX_NEIGHBOURS if unit and n <= K8A_SMALL_NODES else K8A_MIN_NEIGHBOURS
+    return FlipPlan(True, not (neighbours >= k8a_from * n and wsw.word_entry_bytes(graph) <= FLIP_L2_SHARE * l2))
 
 
 class FusedSweepEngine(NamedTuple):

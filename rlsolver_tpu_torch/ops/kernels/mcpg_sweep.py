@@ -20,7 +20,10 @@ list of non-zero mask words, which is all that K4 reads.
     t = s*N + k of each chain, low 16 bits); the plain version draws the same.
   * `sweep_1flip_packed` (K5): deterministic greedy 1-flip sweep in
     ascending node order, strict improvements only; bit-exact with the f32
-    incremental-gain sweep of `MaxcutEnv`.
+    incremental-gain sweep of `MaxcutEnv`. The kernel walks `LevelLists`,
+    each node's signed neighbour list in the level schedule that K8b walks,
+    from a copy of the whole table in each block's shared memory; the plain
+    version walks JAX's packed rows, decoded from the lists, in node order.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mcpg_sweep.cu`);
 on a CPU tensor it runs the plain PyTorch version. The table builders put
@@ -40,7 +43,7 @@ import torch
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops.kernels import philox
-from rlsolver_tpu_torch.ops.kernels.build import Kernel, check_cuda_tensor, register
+from rlsolver_tpu_torch.ops.kernels.build import Kernel, check_cuda_tensor, header_constant, register
 from rlsolver_tpu_torch.ops.kernels.codec import num_words, pack_bits, unpack_bits
 
 MCPG_SWEEP = register(Kernel(
@@ -48,7 +51,7 @@ MCPG_SWEEP = register(Kernel(
     replaces="rlsolver_tpu/ops/pallas/mcpg_sweep.py:171 _mcpg_sweep_kernel",
 ))
 SWEEP_1FLIP = register(Kernel(
-    "sweep_1flip", "mcpg_sweep.cu", "sweep_1flip", "pppppiii",
+    "sweep_1flip", "mcpg_sweep.cu", "sweep_1flip", "piiiipii",
     replaces="rlsolver_tpu/ops/pallas/mcpg_sweep.py:385 _sweep_1flip_kernel",
 ))
 
@@ -265,64 +268,223 @@ def mcpg_sweep_fused(
     return _sweep(bits, tables, num_sweeps, noise_scale, None, seed)
 
 
-class PackedAdjacency(NamedTuple):
-    """{0, +-1}-weight adjacency as packed row planes [N, W] in natural node
-    order, with per-row popcounts; `neg` is None on a unit-weight graph."""
+# K5's list entries hold a node id in 15 bits and the sign in the 16th
+# (its records hold the id in 16), so K5 takes graphs of at most 2^15 nodes.
+K5_MAX_NODES = 1 << 15
 
-    pos: torch.Tensor  # [N, W] int32
-    neg: Optional[torch.Tensor]  # [N, W] int32 or None
-    deg_pos: torch.Tensor  # [N] int32 number of +1 neighbours
-    deg_neg: Optional[torch.Tensor]  # [N] int32 number of -1 neighbours
+
+def _unit_entries(graph: Graph):
+    """(rows, cols, negative) int64/bool numpy of every non-zero weight of a
+    {0, +-1} graph, each edge in both directions, sorted by (row, col)."""
+    if not is_unit_weight(graph):
+        raise ValueError("the packed kernels K4/K5 take {0, +-1}-weight graphs only")
+    keep = graph.weights != 0
+    i, j = (graph.edges[keep, c].astype(np.int64) for c in (0, 1))
+    neg = graph.weights[keep] < 0
+    rows, cols, neg = np.concatenate([i, j]), np.concatenate([j, i]), np.concatenate([neg, neg])
+    order = np.argsort(rows * graph.num_nodes + cols, kind="stable")
+    return rows[order], cols[order], neg[order]
+
+
+def level_table_layout(depth: int, positions: int, entries: int):
+    """(record offset, entry offset, table bytes) of K5's table: the level
+    offsets [D + 1] int32, padded to 8 bytes; the records [V + 1] of 8
+    bytes; the 2-byte list entries; the whole padded to 16 bytes."""
+    record = 4 * (depth + 1 + (depth + 1) % 2)
+    entry = record + 8 * (positions + 1)
+    return record, entry, -(-(entry + 2 * entries) // 16) * 16
+
+
+def level_table_bytes(graph: Graph) -> int:
+    """The most bytes K5's table can take, from the edge list alone: the
+    schedule's depth is counted as its most, one level a node."""
+    rows, _, _ = _unit_entries(graph)
+    v = np.unique(rows).size
+    return level_table_layout(v, v, rows.size)[2]
+
+
+class LevelLists(NamedTuple):
+    """K5's table: the natural-order neighbour lists of a {0, +-1} graph in
+    the level schedule that K8b walks (`weighted_sweep.level_schedule`), as
+    one int32 blob that the kernel copies whole into shared memory.
+
+    A node without neighbours never flips (its cut and weighted degree are
+    0), so the schedule holds the V nodes that have one. Position v of the
+    schedule (by level, then id) has the record {start_v, i | wdeg_i << 16}:
+    its node i, the start of its list (it ends where position v + 1's
+    starts; record V is {E, 0}) and wdeg_i = deg+_i - deg-_i. Level d is
+    positions level_offsets[d]:level_offsets[d + 1]. Node i's list holds one
+    2-byte entry per neighbour j, ascending j, {sign << 15 | j}, sign = 1 for
+    weight -1. No weight is stored."""
+
+    table: torch.Tensor  # [table bytes / 4] int32
+    num_nodes: int  # N
+    depth: int  # D, levels
+    positions: int  # V, nodes with a neighbour
+    num_entries: int  # E
+
+    @property
+    def layout(self):
+        return level_table_layout(self.depth, self.positions, self.num_entries)
+
+    @property
+    def table_bytes(self) -> int:
+        return self.layout[2]
+
+    @property
+    def level_offsets(self) -> torch.Tensor:
+        return self.table[: self.depth + 1]
+
+    @property
+    def records(self) -> torch.Tensor:
+        """[V + 1, 2] int32 {start, node | wdeg << 16}."""
+        r = self.layout[0] // 4
+        return self.table[r : r + 2 * (self.positions + 1)].view(-1, 2)
+
+    @property
+    def entries(self) -> torch.Tensor:
+        """[E] int16: the sign is the top bit."""
+        e = self.layout[1] // 4
+        return self.table[e : e + -(-self.num_entries // 2)].view(torch.int16)[: self.num_entries]
+
+    def signed_rows(self):
+        """(i, j, negative) of every entry, as the lists hold them: long,
+        long, bool [E] on the table's device."""
+        rec = self.records.long()
+        nodes = torch.repeat_interleave(rec[:-1, 1] & 0xFFFF, rec[1:, 0] - rec[:-1, 0])
+        ent = self.entries.long() & 0xFFFF
+        return nodes, ent & 0x7FFF, (ent >> 15).bool()
+
+    @staticmethod
+    def build(graph: Graph, device=None) -> "LevelLists":
+        """From the edge list, with no [N, N] matrix."""
+        from rlsolver_tpu_torch.ops.kernels.weighted_sweep import level_schedule  # imports this module
+
+        device = resolve_device(device)
+        n = graph.num_nodes
+        if n > K5_MAX_NODES:
+            raise ValueError(f"K5's 2-byte entries hold node ids below {K5_MAX_NODES}; the graph has {n} nodes")
+        rows, cols, neg = _unit_entries(graph)
+        offsets = np.zeros(n + 1, np.int64)
+        offsets[1:] = np.cumsum(np.bincount(rows, minlength=n))
+        level_nodes, level_offsets = level_schedule(offsets, cols)
+        deg = np.diff(offsets)
+        active = deg[level_nodes] > 0  # nodes without neighbours sit in level 0 and never flip
+        nodes = level_nodes[active].astype(np.int64)
+        level_offsets = np.maximum(level_offsets.astype(np.int64) - (~active).sum(), 0)
+        depth = 0 if nodes.size == 0 else level_offsets.size - 1
+        level_offsets = level_offsets[: depth + 1]
+        wdeg = np.zeros(n, np.int64)
+        np.add.at(wdeg, rows, np.where(neg, -1, 1))
+        lens = deg[nodes]
+        starts = np.zeros(nodes.size + 1, np.int64)
+        starts[1:] = np.cumsum(lens)
+        # each node's list, in schedule order: entries offsets[i]:offsets[i + 1]
+        src = np.repeat(offsets[nodes] - starts[:-1], lens) + np.arange(starts[-1])
+        ent = cols[src] | (neg[src].astype(np.int64) << 15)
+        record, entry, nbytes = level_table_layout(depth, nodes.size, ent.size)
+        blob = np.zeros(nbytes, np.uint8)
+        blob[: 4 * (depth + 1)] = level_offsets.astype("<i4").view(np.uint8)
+        rec = np.zeros((nodes.size + 1, 2), np.int64)
+        rec[:, 0] = starts
+        rec[:-1, 1] = nodes | (wdeg[nodes] << 16)
+        blob[record:entry] = (rec & 0xFFFFFFFF).astype("<u4").view(np.uint8).reshape(-1)
+        blob[entry : entry + 2 * ent.size] = ent.astype("<u2").view(np.uint8)
+        table = torch.from_numpy(blob.view("<i4").copy()).to(device)
+        return LevelLists(table, n, depth, int(nodes.size), int(ent.size))
+
+
+class PackedAdjacency(NamedTuple):
+    """The tables of K5 on a {0, +-1}-weight graph: its level lists, which
+    are all the kernel reads. JAX's packed row planes [N, W] in natural node
+    order and the per-row counts, which the plain version reads, are decoded
+    from the lists where they are asked for (`pos`, `neg`, `deg_pos`,
+    `deg_neg`; `neg` and `deg_neg` are None on a graph with no -1 weight)."""
+
+    levels: LevelLists
+
+    def _plane(self, negative: bool) -> torch.Tensor:
+        n, w = self.levels.num_nodes, num_words(self.levels.num_nodes)
+        i, j, neg = self.levels.signed_rows()
+        keep = neg == negative
+        i, j = i[keep], j[keep]
+        # disjoint powers of two (bit 31 is -2^31): the int32 sum is the OR
+        bits = torch.ones_like(j, dtype=torch.int32) << (j & 31).to(torch.int32)
+        return torch.zeros(n * w, dtype=torch.int32, device=j.device).index_add_(0, i * w + (j >> 5), bits).view(n, w)
+
+    def _count(self, negative: bool) -> torch.Tensor:
+        i, _, neg = self.levels.signed_rows()
+        return torch.bincount(i[neg == negative], minlength=self.levels.num_nodes).to(torch.int32)
+
+    @property
+    def signed(self) -> bool:
+        return bool(self.levels.signed_rows()[2].any())
+
+    @property
+    def pos(self) -> torch.Tensor:  # [N, W] int32
+        return self._plane(False)
+
+    @property
+    def neg(self) -> Optional[torch.Tensor]:  # [N, W] int32 or None
+        return self._plane(True) if self.signed else None
+
+    @property
+    def deg_pos(self) -> torch.Tensor:  # [N] int32 number of +1 neighbours
+        return self._count(False)
+
+    @property
+    def deg_neg(self) -> Optional[torch.Tensor]:  # [N] int32 number of -1 neighbours
+        return self._count(True) if self.signed else None
 
 
 def pack_adjacency(graph: Graph, device=None) -> PackedAdjacency:
-    device = resolve_device(device)
-    adj = _signed_adjacency(graph)
-
-    def degree(a):
-        return torch.from_numpy(a.sum(axis=1).astype(np.int32)).to(device)
-
-    signed = bool(np.any(adj < 0))
-    return PackedAdjacency(
-        pos=_pack_rows(adj > 0, device),
-        neg=_pack_rows(adj < 0, device) if signed else None,
-        deg_pos=degree(adj > 0),
-        deg_neg=degree(adj < 0) if signed else None,
-    )
+    return PackedAdjacency(LevelLists.build(graph, device))
 
 
 def _sweep_1flip_plain(x: torch.Tensor, adj: PackedAdjacency) -> torch.Tensor:
-    """Plain version of the K5 kernel on bool [B, N] (integer popcounts)."""
+    """Plain version of the K5 kernel on bool [B, N]: the sequential sweep
+    in node order over JAX's packed rows (integer popcounts)."""
     n = x.shape[1]
     x = x.clone()
-    pos = unpack_bits(adj.pos, n)
-    neg = unpack_bits(adj.neg, n) if adj.neg is not None else None
+    pos, deg_pos = unpack_bits(adj.pos, n), adj.deg_pos.long()
+    signed = adj.signed
+    neg, deg_neg = (unpack_bits(adj.neg, n), adj.deg_neg.long()) if signed else (None, None)
     for i in range(n):
         cur = x[:, i]
         p = (x & pos[i]).sum(dim=1)
-        deg = adj.deg_pos[i].long()
+        deg = deg_pos[i]
         cut = torch.where(cur, deg - p, p)
         wdeg = deg
-        if neg is not None:
+        if signed:
             pn = (x & neg[i]).sum(dim=1)
-            degn = adj.deg_neg[i].long()
+            degn = deg_neg[i]
             cut = cut - torch.where(cur, degn - pn, pn)
             wdeg = deg - degn
         x[:, i] = cur ^ (wdeg - 2 * cut > 0)
     return x
 
 
+def level_smem_bytes(table_bytes: int, n: int) -> int:
+    """Shared memory of a K5 block of one chain: its barrier, the table and
+    the chain's words (csrc/mcpg_sweep.cu)."""
+    return 16 + table_bytes + (num_words(n) | 1) * 4
+
+
 def sweep_1flip_packed(bits: torch.Tensor, adj: PackedAdjacency) -> torch.Tensor:
     """Greedy sequential 1-flip sweep. bits bool [B, N] -> bool [B, N]."""
     b, n = bits.shape
+    lv = adj.levels
+    if n != lv.num_nodes:
+        raise ValueError(f"bits have {n} nodes, tables built for {lv.num_nodes}")
     if not bits.is_cuda:
         return _sweep_1flip_plain(bits.bool(), adj)
-    w = num_words(n)
+    check_cuda_tensor(lv.table, "levels.table", torch.int32, (lv.table_bytes // 4,))
+    if lv.table.data_ptr() % 16:
+        raise ValueError("levels.table must be 16-byte aligned (the kernel copies it in bulk)")
+    if level_smem_bytes(lv.table_bytes, n) > header_constant("kMaxSmem"):
+        raise ValueError(f"K5's table of {lv.table_bytes} bytes and a chain of {n} nodes do not fit a block's "
+                         "shared memory")
     words = pack_bits(bits)
-    check_cuda_tensor(adj.pos, "adj.pos", torch.int32, (n, w))
-    check_cuda_tensor(adj.deg_pos, "adj.deg_pos", torch.int32, (n,))
-    if adj.neg is not None:
-        check_cuda_tensor(adj.neg, "adj.neg", torch.int32, (n, w))
-        check_cuda_tensor(adj.deg_neg, "adj.deg_neg", torch.int32, (n,))
-    SWEEP_1FLIP.launch(adj.pos, adj.neg, adj.deg_pos, adj.deg_neg, words, b, w, n)
+    record, entry, nbytes = lv.layout
+    SWEEP_1FLIP.launch(lv.table, nbytes, lv.depth, record, entry, words, b, num_words(n))
     return unpack_bits(words, n)

@@ -28,8 +28,16 @@ a u16 uniform from the low 16 bits, accepted when u16 < threshold[cur].
     Both are bit-exact with their JAX kernels fed the same draws.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mh_sampler.cu`);
-on a CPU tensor it runs the plain PyTorch version. None of K2, K11 and K12
-is on a solver path, in this package or the JAX one.
+on a CPU tensor it runs the plain PyTorch version. K11's kernel stages its
+(node, u) stream through a ring in shared memory, one bulk copy per round
+row of its chain tile, so its rows must be 16-byte aligned and a multiple
+of 16 bytes apart (`bulk_rows` pads them). The ring of 4 stages fits
+beside a tile of 64 chains up to W = 651 words (N = 20,832); beyond, the
+tile halves to 32 chains, then the stages halve (4 up to W = 1559, 2 up to
+1687, 1 up to 1751), and up to W = 1815 (N = 58,080), where the 32 chains'
+words alone fill a block's shared memory, the kernel reads the stream from
+device memory. None of K2, K11 and K12 is on a solver path, in this package
+or the JAX one.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ MH_FUSED = register(Kernel(
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:403 _mh_fused_kernel",
 ))
 MH_ONEHOT = register(Kernel(
-    "mh_sample_onehot", "mh_sampler.cu", "mh_onehot", "ppppiiii",
+    "mh_sample_onehot", "mh_sampler.cu", "mh_onehot", "ppppiiiii",
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:72 _mh_kernel",
 ))
 MH_PACKED = register(Kernel(
@@ -221,15 +229,31 @@ def _check_rounds(nodes, other, name, dtype, b):
     check_cuda_tensor(other, name, dtype, tuple(nodes.shape))
 
 
+def bulk_rows(t: torch.Tensor) -> torch.Tensor:
+    """t [R, B] as rows that K11 copies in bulk, 16-byte aligned and a
+    multiple of 16 bytes apart: t itself where B % 4 == 0 and t is aligned,
+    else a copy into a `torch.empty` buffer [R, B_pad], B_pad the next
+    multiple of 4, whose extra columns no chain reads."""
+    r, b = t.shape
+    if b % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty(r, -(-b // 4) * 4, dtype=t.dtype, device=t.device)
+    out[:, :b] = t
+    return out
+
+
 def mh_sample_onehot(nodes: torch.Tensor, u: torch.Tensor, probs: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """K11: the R rounds of (nodes, u) [R, B] on chains bits bool [B, N]."""
+    """K11: the R rounds of (nodes, u) [R, B] on chains bits bool [B, N].
+    On the card, where B is not a multiple of 4 (or a tensor is not 16-byte
+    aligned), nodes and u are first padded by `bulk_rows`."""
     b, n = bits.shape
     words = pack_bits(bits)
     if not words.is_cuda:
         return unpack_bits(mh_onehot_plain(nodes, u, probs, words, n), n)
     _check_rounds(nodes, u, "u", torch.float32, b)
     check_cuda_tensor(probs, "probs", torch.float32, (n,))
-    MH_ONEHOT.launch(nodes, u, probs, words, b, num_words(n), n, nodes.shape[0])
+    nodes_p, u_p = bulk_rows(nodes), bulk_rows(u)
+    MH_ONEHOT.launch(nodes_p, u_p, probs, words, b, nodes_p.shape[1], num_words(n), n, nodes.shape[0])
     return unpack_bits(words, n)
 
 

@@ -1,14 +1,16 @@
 """Time the integer-weight sweep kernels and K10 of the PyTorch/CUDA port
 across graph sizes and densities: the numbers behind `K6_MIN_TILES_PER_SM`,
-`LIST_STAGE_ENTRIES`, `K8A_MIN_NEIGHBOURS` and `FLIP_L2_SHARE` in
-rlsolver_tpu_torch/ops/kernels/engine.py, and K10's time by density.
+`LIST_STAGE_ENTRIES`, `K8A_MIN_NEIGHBOURS`, `K5_MAX_NEIGHBOURS` and
+`FLIP_L2_SHARE` in rlsolver_tpu_torch/ops/kernels/engine.py, and K10's time
+by density.
 
     python3 scripts/torch_engine_share.py [--chains 24576,262144] [--sizes 2000,4000,...]
                                           [--edges-per-node 1,10] [--stages 128,256,1024,4096]
                                           [--unit-sizes 2000,3000,...]
                                           [--flip-chains 768,2048] [--dense-edges 30,35,...,500]
+                                          [--unit-flip-cells "2000:1,5,...,500;500:20,...,100;1000:20,...,50"]
                                           [--k10-densities 0.1,0.25,0.5,1.0]
-                                          [--no-sweep] [--no-unit] [--no-flip] [--no-k10]
+                                          [--no-sweep] [--no-unit] [--no-flip] [--no-unit-flip] [--no-k10]
 
 Needs one CUDA card. For each N and edge density, a seeded G(N, m) graph
 with weights in +-{1..7} (3 signed planes, as the W22-like and W70-like
@@ -36,6 +38,17 @@ check that the two give the same bits; on the sizes and densities above,
 at N = 2000 with each of `--dense-edges` edges per node, and on D2000-like
 (`build_d2000_like`, 10% of all pairs).
 
+The unit-weight 1-flip sweep, at each chain count of `--flip-chains`: K5
+(the signed lists in a level schedule, copied whole into each block's
+shared memory) against K8a and K8b on the same graph's unit weights (one
+plane), in the order K5, K8a, K8b, K8b, K8a, K5 (K5 only where its table
+fits), after a check that the three give the same bits: on the cells of
+`--unit-flip-cells`, N with its edges per node (by default N = 2000 from 2
+to 1000 neighbours a node, N = 500 and 1000 at 40 to 200, where K5's
+table fits at densities it cannot hold at N = 2000, and N = 4000 at 50 to
+80, where K8a and K8b split the graphs whose table does not fit), and at
+the largest N, in steps of 500, whose K5 table fits at one edge per node.
+
 K10 at L2A's 2048 chains, on G22-like, F22-like and, for each of
 `--k10-densities`, the share of all pairs of 2000 nodes drawn from the
 complete graph `build_complete_f32(2000)` (weights uniform in [0.5, 1.5);
@@ -49,8 +62,9 @@ chains), K6 over K7 by K6's tiles per SM and the fewest tiles per SM from
 which K6 was faster at every size, the fastest stage at each size; for the
 unit pair K4 over K7 by the tile's tiles per SM; for the
 1-flip pair K8a over K8b by neighbours per node (the table `plan_1flip` was
-set from) and the cells where K8a was the faster; and K10's time by
-density.
+set from) and the cells where K8a was the faster; for the unit 1-flip
+triple each cell's times and the cells where K5 was the fastest; and K10's
+time by density.
 """
 
 from __future__ import annotations
@@ -224,6 +238,70 @@ def flip_rows(args, l2, gen):
     return rows
 
 
+def unit_graph(n: int, m: int, seed: int) -> Graph:
+    """G(n, m) of `gnm_edges` with every weight 1."""
+    e = np.sort(np.asarray(gnm_edges(n, m, seed=seed), np.int32).reshape(-1, 2), axis=1)
+    return Graph(n, e, np.ones(e.shape[0], np.float32), f"U{n}x{2 * m // n}")
+
+
+def unit_flip_graphs(args):
+    """The unit 1-flip cells' graphs: each N of `--unit-flip-cells` at its
+    edges per node, then the largest N (in steps of 500) whose K5 table
+    fits at one edge per node."""
+    for cell in args.unit_flip_cells.split(";"):
+        n, spec = cell.split(":")
+        for per_node in (int(x) for x in spec.split(",") if x):
+            yield unit_graph(int(n), per_node * int(n), int(n) + per_node)
+    n = 10000
+    while engine.k5_fits(unit_graph(n + 500, n + 500, 1)):
+        n += 500
+    yield unit_graph(n, n, 1)
+
+
+def unit_flip_rows(args, l2, gen):
+    rows = []
+    for g in unit_flip_graphs(args):
+        n = g.num_nodes
+        w = codec.num_words(n)
+        fits = engine.k5_fits(g)
+        adj = wsw.WeightedAdjPlanes.build(g, "cuda")
+        lv = sw.LevelLists.build(g, "cuda") if fits else None
+        for b in (int(x) for x in args.flip_chains.split(",")):
+            w0 = random_words(b, n, gen)
+
+            def k5(words):
+                rec, ent, nbytes = lv.layout
+                sw.SWEEP_1FLIP.launch(lv.table, nbytes, lv.depth, rec, ent, words, b, w)
+                return words
+
+            def k8a(words):
+                wsw.WSWEEP_1FLIP.launch(adj.word_offsets, adj.word_entries, adj.wdeg, adj.word_entries.shape[0] - 1,
+                                        words, b, w, n)
+                return words
+
+            def k8b(words):
+                wsw.WSWEEP_1FLIP_LEVELS.launch(adj.offsets, adj.entries, adj.level_nodes, adj.level_offsets,
+                                               adj.wdeg, words, b, w, adj.depth)
+                return words
+
+            fns = ([k5] if fits else []) + [k8a, k8b]
+            ref = k8b(w0.clone())
+            if any(not torch.equal(f(w0.clone()), ref) for f in fns):
+                raise AssertionError(f"{g.name}, {b} chains: K5, K8a and K8b differ")
+            words = w0.clone()
+            times = alternate(*(lambda f=f: f(words) for f in fns))
+            t5, ta, tb = ((None,) if not fits else ()) + times
+            row = dict(graph=g.name, n=n, neighbours_per_node=2 * g.num_edges / n, depth=adj.depth, chains=b,
+                       k5_fits=fits, k5_table_bytes=lv.table_bytes if fits else sw.level_table_bytes(g),
+                       k5_depth=lv.depth if fits else None, plan=engine.plan_1flip(g, l2)._asdict(),
+                       k5_ms=t5, k8a_ms=ta, k8b_ms=tb)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+            del w0, words
+        del adj, lv
+    return rows
+
+
 def k10_graphs(args):
     yield build_g22_like()
     yield build_f22_like()
@@ -278,10 +356,14 @@ def main() -> int:
     p.add_argument("--unit-sizes", default="2000,3000,4000,5000,7000,10000,14000")
     p.add_argument("--flip-chains", default="768,2048")
     p.add_argument("--dense-edges", default="30,35,40,45,50,60,100,500")
+    p.add_argument("--unit-flip-cells",
+                   default="2000:1,5,10,15,20,25,30,35,40,50,100,250,500;500:20,25,30,35,40,50,75,100;"
+                           "1000:20,25,30,35,40,50;4000:25,30,35,40")
     p.add_argument("--k10-densities", default="0.1,0.25,0.5,1.0")
     p.add_argument("--no-sweep", action="store_true", help="skip the noisy-sweep pair")
     p.add_argument("--no-unit", action="store_true", help="skip the unit-weight pair K4/K7")
     p.add_argument("--no-flip", action="store_true", help="skip the 1-flip pair")
+    p.add_argument("--no-unit-flip", action="store_true", help="skip the unit 1-flip triple K5/K8a/K8b")
     p.add_argument("--no-k10", action="store_true", help="skip K10")
     args = p.parse_args()
     if not torch.cuda.is_available():
@@ -299,6 +381,7 @@ def main() -> int:
     sweeps = [] if args.no_sweep else sweep_rows(args, l2, gen)
     units = [] if args.no_unit else unit_rows(args, l2, gen)
     flips = [] if args.no_flip else flip_rows(args, l2, gen)
+    unit_flips = [] if args.no_unit_flip else unit_flip_rows(args, l2, gen)
     k10 = [] if args.no_k10 else k10_rows(args, gen)
 
     summary = {}
@@ -330,6 +413,11 @@ def main() -> int:
                                               for r in rs],
                       k8a_faster=[r["graph"] for r in rs if r["k8a_ms"] < r["k8b_ms"]])
             for key, rs in by.items()}
+    if unit_flips:
+        out["unit_flip_k5_k8a_k8b"] = [(r["graph"], r["chains"], round(r["neighbours_per_node"], 1), r["depth"],
+                                        r["k5_ms"], r["k8a_ms"], r["k8b_ms"]) for r in unit_flips]
+        out["k5_fastest"] = [(r["graph"], r["chains"]) for r in unit_flips
+                             if r["k5_ms"] is not None and r["k5_ms"] < min(r["k8a_ms"], r["k8b_ms"])]
     if k10:
         out["k10_by_density"] = [(r["graph"], round(r["density"], 4), r["accepted_flips"], r["k10_ms"]) for r in k10]
     print(json.dumps(out))

@@ -1,18 +1,20 @@
-"""Time the MH kernels that take injected randomness, K11 (`mh_onehot`) and
-K12 (`mh_packed`) of the PyTorch/CUDA port, at several chain tiles: the
-numbers behind the chains per block they launch with.
+"""Time K11 (`mh_onehot`) of the PyTorch/CUDA port, whose stream is staged
+through a ring in shared memory, at several chain tiles: the numbers behind
+its tile `kOnehotTile` in rlsolver_tpu_torch/csrc/mh_sampler.cu.
 
     python3 scripts/torch_mh_tile.py [--chains 8192,32768,131072] [--tiles 32,64,128]
                                      [--rounds 1024]
 
 Needs one CUDA card. For each tile, a copy of rlsolver_tpu_torch/csrc/ with
-the chains per block (`kChainsPerBlock` in common.cuh) set to the tile is
-built with the library's nvcc flags, all builds at once. On the G22-like graph
-(N = 2000) and each chain count, seeded (node, u) draws of `--rounds` rounds
-go through K11 and K12 of every build; all builds must give the same bits.
-Each kernel of each build is timed with CUDA events after a warm-up launch,
-the builds in the order given and then reversed, and the two times averaged.
-One JSON line per chain count; the card's name and power limit come first.
+K11's chains per block (`kOnehotTile`) set to the tile is built with the
+library's nvcc flags, all builds at once. On the G22-like graph (N = 2000)
+and each chain count, seeded (node, u) draws of `--rounds` rounds go
+through K11 of every build; all builds must give the same bits, and those
+of the plain version. Each build's K11 is timed with CUDA events after a
+warm-up launch, the builds in the order given and then reversed, and the
+two times averaged; K12 (`mh_packed`, the common tile of 128 chains) is
+timed beside them on the same draws. One JSON line per chain count; the
+card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -35,22 +37,22 @@ from rlsolver_tpu_torch.core.generate import build_g22_like  # noqa: E402
 from rlsolver_tpu_torch.ops.kernels import build, codec  # noqa: E402
 from rlsolver_tpu_torch.ops.kernels import mh_sampler as mh  # noqa: E402
 
-TILE_CONSTANT = re.compile(r"(constexpr\s+int\s+kChainsPerBlock\s*=\s*)\d+")
+TILE_CONSTANT = re.compile(r"(constexpr\s+int\s+kOnehotTile\s*=\s*)\d+")
 
 
 def build_tile(tile: int, work: str) -> subprocess.Popen:
-    """Starts nvcc on a copy of csrc/ whose chains per block are `tile`."""
+    """Starts nvcc on a copy of csrc/ whose K11 tile is `tile`."""
     src = os.path.join(work, f"csrc_{tile}")
     shutil.copytree(build.CSRC, src)
-    header = os.path.join(src, "common.cuh")
-    with open(header) as f:
+    source = os.path.join(src, "mh_sampler.cu")
+    with open(source) as f:
         text, found = TILE_CONSTANT.subn(rf"\g<1>{tile}", f.read())
     if found != 1:
-        raise RuntimeError("kChainsPerBlock not found in common.cuh")
-    with open(header, "w") as f:
+        raise RuntimeError("kOnehotTile not found in mh_sampler.cu")
+    with open(source, "w") as f:
         f.write(text)
     out = os.path.join(work, f"libmh_{tile}.so")
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", src, "-o", out, os.path.join(src, "mh_sampler.cu")]
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", src, "-o", out, source]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -99,7 +101,8 @@ def main() -> int:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for tile {t}:\n{log}")
         libs = {t: ctypes.CDLL(os.path.join(work, f"libmh_{t}.so")) for t in tiles}
-        fns = {t: (bind(lib, mh.MH_ONEHOT), bind(lib, mh.MH_PACKED)) for t, lib in libs.items()}
+        k11 = {t: bind(lib, mh.MH_ONEHOT) for t, lib in libs.items()}
+        k12 = bind(libs[tiles[0]], mh.MH_PACKED)
 
         dev = torch.device("cuda")
         g = build_g22_like()
@@ -111,27 +114,26 @@ def main() -> int:
             words0 = codec.pack_bits(torch.rand(chains, n, generator=gen, device=dev) < 0.5)
             nodes, u = mh.make_round_randoms(gen, args.rounds, chains, n)
             acc2 = mh.make_round_accepts(nodes, u, probs)
-            row = {"chains": chains, "rounds": args.rounds, "nodes": n}
-            for k, name in enumerate(("mh_sample_onehot", "mh_sample_packed")):
-                def run(t, words):
-                    if k == 0:
-                        fns[t][0](nodes, u, probs, words, chains, w, n, args.rounds)
-                    else:
-                        fns[t][1](nodes, acc2, words, chains, w, n, args.rounds)
 
-                outs = {}
-                for t in tiles:
-                    outs[t] = words0.clone()
-                    run(t, outs[t])
-                if any(not torch.equal(outs[t], outs[tiles[0]]) for t in tiles):
-                    raise AssertionError(f"{name}: the tiles disagree at {chains} chains")
-                scratch = words0.clone()
-                times = {t: [] for t in tiles}
-                for t in tiles + tiles[::-1]:
-                    times[t].append(event_ms(lambda: run(t, scratch)))
-                row[name] = {str(t): sum(v) / len(v) for t, v in times.items()}
+            def run(t, words):
+                k11[t](nodes, u, probs, words, chains, chains, w, n, args.rounds)
+
+            plain = mh.mh_onehot_plain(nodes, u, probs, words0, n)
+            for t in tiles:
+                out = words0.clone()
+                run(t, out)
+                if not torch.equal(out, plain):
+                    raise AssertionError(f"K11 with a tile of {t} differs from the plain version at {chains} chains")
+            scratch = words0.clone()
+            times = {t: [] for t in tiles}
+            for t in tiles + tiles[::-1]:
+                times[t].append(event_ms(lambda: run(t, scratch)))
+            k12_ms = [event_ms(lambda: k12(nodes, acc2, scratch, chains, w, n, args.rounds)) for _ in range(2)]
+            row = {"chains": chains, "rounds": args.rounds, "nodes": n,
+                   "mh_sample_onehot": {str(t): sum(v) / len(v) for t, v in times.items()},
+                   "mh_sample_packed": sum(k12_ms) / len(k12_ms)}
             print(json.dumps(row), flush=True)
-        del libs, fns
+        del libs, k11, k12
     print(smi)
     return 0
 

@@ -169,9 +169,13 @@ def test_plan_1flip_takes_k8a_on_dense_rows(neighbours, levels):
 
 
 def test_plan_1flip_keeps_k5_on_unit_weights_and_refuses_fractions():
+    # K5 on sparse unit rows (a ring of 80 nodes); the complete unit graph on
+    # 80 nodes (79 neighbours a node, from K5_MAX_NEIGHBOURS = 60) takes K8a
+    ring = Graph(80, np.stack([np.arange(79), np.arange(1, 80)], 1).astype(np.int32), np.ones(79, np.float32), "P80")
+    assert engine.plan_1flip(ring, engine.H100_L2_BYTES) == (False, False)
     a, b = np.triu_indices(80, k=1)
     unit = Graph(80, np.stack([a, b], 1).astype(np.int32), np.ones(a.size, np.float32), "K80")
-    assert engine.plan_1flip(unit, engine.H100_L2_BYTES) == (False, False)
+    assert engine.plan_1flip(unit, engine.H100_L2_BYTES) == (True, False)
     half = Graph(80, np.stack([a, b], 1).astype(np.int32), np.full(a.size, 0.5, np.float32), "K80half")
     with pytest.raises(ValueError, match="integer"):
         engine.plan_1flip(half, engine.H100_L2_BYTES)

@@ -197,20 +197,22 @@ def test_engine_choices_with_the_h100_l2():
     # unit weights at G70's size: K4's word lists fit, but its chain tile
     # leaves one per SM, so K7 runs the noisy sweep (as in the JAX package,
     # which streamed the tables for VMEM; K7 was 1.8-3.7 times faster than
-    # K4 there on the H100); K5's 12.5 MB of planes fit
+    # K4 there on the H100); K5's table fits a block's shared memory
     g70 = Graph.from_edge_list(10000, [(a, b, 1.0) for a, b in gnm_edges(10000, 9999, seed=70)], "G70like")
     assert tsw.word_list_bytes(g70) <= engine.SWEEP_L2_SHARE * l2
     assert engine.plan_sweep(g70, l2) == (True, engine.LIST_STAGE_ENTRIES)
     assert engine.plan_1flip(g70, l2) == (False, False)
     # K4's rule charges the word lists it reads: G22-like's 556,676 bytes
     # (34,292 step words of 16 bytes, and the offsets), not its 1.5 MB of
-    # mask planes; K5's charges its planes
+    # mask planes; K5's reads no L2 share: its table (at most 103,984 bytes)
+    # and a chain's words must fit a block's shared memory
     t22 = tsw.PackedSweepTables.build(g22, "cpu")
     assert tsw.word_list_bytes(g22) == t22.word_entries.numel() * 4 + t22.word_offsets.numel() * 4 == 556_676
     assert engine.plan_sweep(g22, 556_676 / engine.SWEEP_L2_SHARE + 1) == (False, None)
     assert engine.plan_sweep(g22, 556_675 / engine.SWEEP_L2_SHARE) == (True, None)
+    assert tsw.level_smem_bytes(tsw.level_table_bytes(g22), 2000) == 16 + 103_984 + (63 | 1) * 4
     assert engine.plan_1flip(g22, 2000 * 63 * 4 / engine.FLIP_L2_SHARE + 1) == (False, False)
-    assert engine.plan_1flip(g22, (2000 * 63 * 4 - 1) / engine.FLIP_L2_SHARE) == (True, True)
+    assert engine.plan_1flip(g22, (2000 * 63 * 4 - 1) / engine.FLIP_L2_SHARE) == (False, False)
     # K7's two stages of list entries fit a block's shared memory
     assert build.header_constant("kChainsPerBlock") == 128
     assert 2 * engine.LIST_STAGE_ENTRIES * 8 <= build.header_constant("kMaxSmem") == 227 * 1024
@@ -244,7 +246,7 @@ def test_k4_runs_while_its_tile_leaves_enough_per_sm(n, k4):
     assert tsw.word_list_bytes(g) <= engine.SWEEP_L2_SHARE * engine.H100_L2_BYTES
     assert (engine.k6_tiles_per_sm(n) >= engine.K6_MIN_TILES_PER_SM) == k4
     assert engine.plan_sweep(g, engine.H100_L2_BYTES) == ((False, None) if k4 else (True, engine.LIST_STAGE_ENTRIES))
-    assert engine.plan_1flip(g, engine.H100_L2_BYTES).weighted == (n > 10000)  # K5 while its planes fit
+    assert engine.plan_1flip(g, engine.H100_L2_BYTES).weighted == (n > 10000)  # K5 while its table fits
 
 
 def test_engines_build_and_run_on_cpu():
