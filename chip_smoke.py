@@ -33,13 +33,14 @@ Phases (each prints its seconds; any failure exits non-zero):
                chains of G22-like (also against K5), F22-like (the same
                topology, weights uniform in [0.5, 1.5)) and the complete
                graph on 2000 nodes (s and vs bit for bit, gains as values);
-               K11 and K12 on 8192 chains x 1024 rounds of G22-like (the MH
-               shapes of bench.py), against each other on probs of the
-               2^-16 grid, and K11's marginals against the policy; K11 (its
-               stream staged through a shared-memory ring by bulk copies)
-               also on 1001 chains x 1000 rounds with nodes -1 and N among
-               the proposals, at N = 10000, and at N = 52,000, 55,000 and
-               58,000, where its ring shrinks to 2 stages, 1 and none;
+               K11 and K12 (one ring kernel: the stream staged through
+               shared memory by bulk copies) on 8192 chains x 1024 rounds
+               of G22-like (the MH shapes of bench.py), on 1001 chains x
+               1000 rounds with nodes -1 and N among the proposals, at
+               N = 10000, and at N = 52,000, 55,000 and 58,000, where the
+               ring shrinks to 2 stages, 1 and none; K11 against K12 on
+               probs of the 2^-16 grid, and K11's marginals against the
+               policy;
   3. stream  — K2, the injected-randomness twin of K3, which no solver path
                runs: `mh_sample_stream` alone on the main path's shapes, its
                launches counted in that run;
@@ -73,6 +74,17 @@ Phases (each prints its seconds; any failure exits non-zero):
                mlp 256), depth cut as printed; every local search ends in K10,
                and the plain f32 loop is made to raise for the run; then the
                device time by kernel of one rollout step and one PPO update;
+     l2a_dist — distribution-wise L2A at the BA_1000 cell of DIST_TABLE's
+               L2A column (256 sims x 4 repeats, top_k 100, seq_len 8, embed
+               32, 2 sweeps; 60 iterations of fresh BA graphs), then
+               `evaluate_l2a_packed` (512 sims x 16 repeats, 8 sweeps, 256
+               rounds) on BA_1000_ID0 and ID1, at full depth; the
+               plain sweep versions are made to raise for the run, K4 and
+               the 1-flip kernel the rule picks must launch and no other
+               sweep, every best cut must equal its host re-score, and the
+               cuts are printed beside the JAX package's
+               (results_quality/dist_table.csv); then the device time by
+               kernel of one training iteration and one eval round;
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
@@ -156,6 +168,16 @@ SMEM_LATENCY_CYCLES = 30
 MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
 FORCED_STAGE = 100  # K7's list entries per stage in the checks that force it small
 FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_levels"}  # by FlipPlan.levels
+SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
+          "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
+# Distribution-wise L2A at the BA_1000 cell of DIST_TABLE's L2A column, as
+# scripts/quality_table.py:349-371 runs it, at full depth: the training
+# config, then the packed evaluator's budget
+DIST_TRAIN = dict(num_nodes=1000, num_sims=256, num_repeats=4, top_k=100, seq_len=8, num_iters=60, embed_dim=32,
+                  pretrain_steps=100, ls_sweeps=2, num_validation=0)
+DIST_EVAL = dict(num_rounds=256, num_sims=512, num_repeats=16, num_sweeps=8)
+DIST_INSTANCES = ("BA_1000_ID0", "BA_1000_ID1")
+DIST_PLAIN = 2048  # of the eval's candidates, those the plain K4 sweep checks (N * sweeps Python steps)
 
 
 def build_hub_graph():
@@ -185,7 +207,14 @@ def build_path_graph(n: int = 10000):
 
 
 def phase(name, t0):
-    print(f"phase {name} ok {time.time() - t0:.2f}s", flush=True)
+    print(f"phase {name} ok {time.time() - t0:.2f}s (sm clock, its max, power, temperature: {smi_clocks()})",
+          flush=True)
+
+
+def smi_clocks() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def smi_line() -> str:
@@ -287,6 +316,170 @@ def profile_device(label: str, fn, top: int = 12) -> None:
           f"({100 * busy_ms / wall_ms:.1f}%, idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
     for key, ms, count in dev_events[:top]:
         print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
+
+
+def jax_dist_cuts(dist: str = "BA", n: int = 1000):
+    """The JAX package's best cut per instance id in the L2A column of
+    results_quality/dist_table.csv: the campaign's own run (the first row of
+    each id; later rows are extra attempts)."""
+    import csv
+    out = {}
+    with open(os.path.join(REPO, "results_quality", "dist_table.csv")) as f:
+        for r in csv.DictReader(f):
+            if r["dist"] == dist and r["n"] == str(n) and r["alg"] == "l2a":
+                out.setdefault(int(r["id"]), float(r["obj"]))
+    return out
+
+
+def run_l2a_dist(dev, errs: dict) -> dict:
+    """Distribution-wise L2A at BA_1000's widths: trains the policy across
+    fresh BA graphs (the 1-flip kernel of the rule in every update), then
+    runs the packed evaluator (K4) on DIST_INSTANCES, the plain sweep
+    versions made to raise. Checks every best cut against its host
+    re-score and the launches, prints the times, peak memory and the cuts
+    beside the JAX package's, then holds the path's 1-flip kernel and K4
+    against their plain versions at the path's shapes (into `errs`), and
+    prints the device time by kernel of one training iteration and one
+    eval round. Returns the launch counts."""
+    from rlsolver_tpu_torch.algos import l2a_distribution as l2d
+    from rlsolver_tpu_torch.config import GraphType
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, sweep_kernel as sk
+    from rlsolver_tpu_torch.ops.kernels import weighted_sweep as wsw
+    from rlsolver_tpu_torch.optim import ClippedAdam
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    cfg = l2d.L2ADistConfig(graph_type=GraphType.BA, **DIST_TRAIN)
+    print(f"  L2ADistConfig {DIST_TRAIN}, then evaluate_l2a_packed {DIST_EVAL}: full depth, no cut", flush=True)
+    l2 = engine.l2_bytes(dev)
+    graphs = [graph_from_name(name) for name in DIST_INSTANCES]
+    sweep_plan, flip_plan = engine.plan_sweep(graphs[0], l2), engine.plan_1flip(graphs[0], l2)
+    flip_k = FLIP_KERNELS[flip_plan.levels] if flip_plan.weighted else "sweep_1flip"
+    sweep_k = ("mcpg_sweep_weighted_chunked" if sweep_plan.node_chunk else "mcpg_sweep_weighted") \
+        if sweep_plan.weighted else "mcpg_sweep"
+    print(f"  {DIST_INSTANCES[0]}: sweep plan {sweep_plan}, 1-flip plan {flip_plan} (the training graphs' family)")
+
+    def plain_sweep_on_the_card(*args, **kwargs):
+        raise AssertionError("a plain sweep version ran on the card")
+
+    plains = [(sk, "sweep_1flip_f32_plain"), (sw, "_sweep_1flip_plain"), (wsw, "_sweep_1flip_plain"),
+              (sw, "_sweep_plain"), (wsw, "_wsweep_plain")]
+    saved = [getattr(m, a) for m, a in plains]
+    for m, a in plains:
+        setattr(m, a, plain_sweep_on_the_card)
+    build.reset_counts()
+    train_t, eval_t = {}, {}
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        bundle = l2d.train_l2a_distribution(cfg, device=dev, timings=train_t)
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vals, best = l2d.evaluate_l2a_packed(bundle, graphs, seed=0, return_xs=True, timings=eval_t, **DIST_EVAL)
+        torch.cuda.synchronize()
+        eval_peak = torch.cuda.max_memory_allocated()
+    finally:
+        for (m, a), fn in zip(plains, saved):
+            setattr(m, a, fn)
+    counts = {k.name: k.launches for k in build.KERNELS}
+    iters, blocks = train_t["iteration"], eval_t["block"]
+    per_round = [t / 8 for t in blocks]  # evaluate_l2a_packed's blocks of 8 rounds
+    def spread(ts):
+        """first, then min / median / mean / max of the rest"""
+        rest = ts[1:] or ts
+        return (f"first {ts[0]:.4f}, then min {min(rest):.4f} median {np.median(rest):.4f} mean "
+                f"{np.mean(rest):.4f} max {max(rest):.4f}")
+
+    print(f"  pretrain {train_t['pretrain'][0]:.3f} s; seconds per training iteration: {spread(iters)}; "
+          f"losses {[round(h['loss'], 4) for h in bundle['history'][:3]]}..{round(bundle['history'][-1]['loss'], 4)}")
+    print(f"  eval: {len(blocks)} blocks of 8 rounds of {DIST_EVAL['num_sims']} x {DIST_EVAL['num_repeats']} = "
+          f"{DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates; seconds per round: {spread(per_round)}")
+    print(f"  max_memory_allocated: training {train_peak / 2**30:.2f} GiB, eval {eval_peak / 2**30:.2f} GiB, each "
+          f"with the {base / 2**30:.2f} GiB that earlier phases hold; launches {counts}")
+    jax_cuts = jax_dist_cuts()
+    lo, hi = min(jax_cuts.values()), max(jax_cuts.values())
+    for name, g, v, x in zip(DIST_INSTANCES, graphs, vals, best):
+        host = obj_maxcut(x.astype("int64"), g)
+        gid = int(name.split("_ID")[1])
+        print(f"  {name}: best cut {v} host re-score {host}; JAX {jax_cuts[gid]} (JAX over ids 0-9: {lo}-{hi}; "
+              f"port - JAX {v - jax_cuts[gid]:+.0f}{', below' if v < lo else ', above' if v > hi else ', within'} "
+              f"the JAX spread)")
+        if host != v:
+            raise AssertionError(f"l2a_dist: best cut {v} != host re-score {host} on {name}")
+    for k in (sweep_k, flip_k):
+        if counts[k] <= 0:
+            raise AssertionError(f"l2a_dist did not launch {k}")
+    wrong = [k for k in SWEEPS if k not in (sweep_k, flip_k) and counts[k]]
+    if wrong or counts["sweep_1flip_f32"]:
+        raise AssertionError(f"l2a_dist: other sweeps than the rule's ran: {wrong} sweep_1flip_f32 "
+                             f"{counts['sweep_1flip_f32']}")
+
+    # the path's two kernels against their plain versions at the path's own
+    # shapes (the plain versions restored): the 1-flip kernel on a training
+    # graph at cfg.num_sims chains, its ls_sweeps sweeps in a row, and K4 on
+    # the eval's first instance at its 8192 candidates (the plain version on
+    # the first DIST_PLAIN of them; the noise is keyed by seed and chain)
+    graph, adj = l2d._sample_adj(cfg, 50_000, dev)
+    flip = l2d._adj_sweep(adj, graph).engine
+    flip_plain = wsw._sweep_1flip_plain if flip.weighted else sw._sweep_1flip_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    xk = torch.rand(cfg.num_sims, cfg.num_nodes, generator=gen, device=dev) < 0.5
+    for i in range(cfg.ls_sweeps):
+        out = flip.sweep(xk)
+        require_equal(f"{flip_k} on {graph.name} ({cfg.num_sims} chains, sweep {i + 1} of {cfg.ls_sweeps})", out,
+                      flip_plain(xk, flip.tables), errs, flip_k)
+        xk = out
+    g0 = graphs[0]
+    eng0 = engine.FusedSweepEngine.build(g0, dev)
+    cands = DIST_EVAL["num_sims"] * DIST_EVAL["num_repeats"]
+    xk = torch.rand(cands, g0.num_nodes, generator=gen, device=dev) < 0.5
+    out = eng0.sweep(4242, xk, DIST_EVAL["num_sweeps"])[:DIST_PLAIN]
+    plain_fn = wsw._wsweep_plain if eng0.weighted else sw._sweep_plain
+    plain = codec.unpack_bits(plain_fn(eng0.tables, codec.pack_bits(xk[:DIST_PLAIN]), g0.num_nodes,
+                                       DIST_EVAL["num_sweeps"], 0.25, None, 4242), g0.num_nodes)
+    require_equal(f"{sweep_k} on {g0.name} (first {DIST_PLAIN} of {cands} candidates, "
+                  f"{DIST_EVAL['num_sweeps']} sweeps)", out, plain, errs, sweep_k)
+    del flip, adj, xk, out, plain
+
+    # where one training iteration and one eval round spend their time
+    net, enc = bundle["net"], bundle["encoder"]
+    steps = l2d._build_dist_steps(net, cfg, ClippedAdam(net.parameters(), cfg.lr))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    host_t = {}
+
+    def train_iteration(seed=60_000):
+        t = time.time()
+        graph, adj = l2d._sample_adj(cfg, seed, dev)
+        host_t["graph"] = time.time() - t
+        t = time.time()
+        sweep = l2d._adj_sweep(adj, graph)
+        torch.cuda.synchronize()
+        host_t["tables"] = time.time() - t
+        seq = l2d._embed(enc, adj)
+        xs = torch.rand(cfg.num_sims, cfg.num_nodes, generator=gen, device=dev) < 0.5
+        steps.update(gen, adj, seq, xs, l2d._cut_value_adj(xs, adj), sweep)
+
+    train_iteration(60_001)
+    profile_device(f"one training iteration ({cfg.num_sims} sims, seq_len {cfg.seq_len}, N = {cfg.num_nodes})",
+                   train_iteration)
+    print(f"    of it on the host: the BA graph {1e3 * host_t['graph']:.1f} ms, its 1-flip tables "
+          f"{1e3 * host_t['tables']:.1f} ms")
+    adj0 = torch.from_numpy(g0.adjacency_dense()).to(dev)
+    seq0 = l2d._embed(enc, adj0)
+    xs0 = torch.rand(DIST_EVAL["num_sims"], g0.num_nodes, generator=gen, device=dev) < 0.5
+    vs0 = l2d._cut_value_adj(xs0, adj0)
+
+    def eval_round():
+        l2d._guided_round(net, seq0, gen, eng0, adj0, xs0, vs0, num_repeats=DIST_EVAL["num_repeats"], top_k=cfg.top_k,
+                          num_sweeps=DIST_EVAL["num_sweeps"])
+
+    eval_round()
+    profile_device(f"one eval round on {g0.name} ({DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates)",
+                   eval_round)
+    return counts
 
 
 def main() -> int:
@@ -548,43 +741,42 @@ def main() -> int:
                           "sweep_1flip_f32")
     del env_k, out_k
 
-    # K11 and K12 at the MH shapes of bench.py; K11 also at 1001 chains x 1000
-    # rounds (neither a multiple of its tile, of 4 or of its ring's chunk)
-    # with nodes -1 and N among the proposals, and at N = 10000
+    # K11 and K12 (one ring kernel) at the MH shapes of bench.py, at 1001
+    # chains x 1000 rounds (neither a multiple of its tile, of 4 or of its
+    # ring's chunk) with nodes -1 and N among the proposals, and at N = 10000
+    def check_injected(label, nd, uu, p, x):
+        """K11 and K12 on the same draws, each bit for bit against its plain
+        version; returns their outputs."""
+        nn, wx = x.shape[1], codec.pack_bits(x)
+        a2 = mh.make_round_accepts(nd.clamp(0, nn - 1), uu, p)  # any acc2 for an out-of-range node
+        o11, o12 = mh.mh_sample_onehot(nd, uu, p, x), mh.mh_sample_packed(nd, a2, x)
+        require_equal(f"K11 {label}", o11, codec.unpack_bits(mh.mh_onehot_plain(nd, uu, p, wx, nn), nn), errs,
+                      "mh_sample_onehot")
+        require_equal(f"K12 {label}", o12, codec.unpack_bits(mh.mh_packed_plain(nd, a2, wx, nn), nn), errs,
+                      "mh_sample_packed")
+        return o11, o12
+
     mh_bits = bits[:MH_CHAINS].contiguous()
-    mh_words = codec.pack_bits(mh_bits)
     nodes, u = mh.make_round_randoms(gen, MH_ROUNDS, MH_CHAINS, n)
     acc2 = mh.make_round_accepts(nodes, u, probs)
-    k11_out = mh.mh_sample_onehot(nodes, u, probs, mh_bits)
-    require_equal("K11 mh_sample_onehot", k11_out,
-                  codec.unpack_bits(mh.mh_onehot_plain(nodes, u, probs, mh_words, n), n), errs, "mh_sample_onehot")
+    k11_out, k12_out = check_injected(f"at {MH_CHAINS} chains x {MH_ROUNDS} rounds", nodes, u, probs, mh_bits)
     nd, uu = mh.make_round_randoms(gen, 1000, 1001, n)
     pick = torch.rand(1000, 1001, generator=gen, device=dev)
     nd = torch.where(pick < 0.05, -1, torch.where(pick > 0.95, n, nd)).to(torch.int32)
-    xb = bits[:1001].contiguous()
-    require_equal("K11 on 1001 chains x 1000 rounds, nodes -1 and N mixed in", mh.mh_sample_onehot(nd, uu, probs, xb),
-                  codec.unpack_bits(mh.mh_onehot_plain(nd, uu, probs, codec.pack_bits(xb), n), n), errs,
-                  "mh_sample_onehot")
+    check_injected("on 1001 chains x 1000 rounds, nodes -1 and N mixed in", nd, uu, probs, bits[:1001].contiguous())
     n10 = 10000
     p10 = torch.rand(n10, generator=gen, device=dev) * 0.6 + 0.2
     x10 = torch.rand(MH_CHAINS, n10, generator=gen, device=dev) < 0.5
     nd, uu = mh.make_round_randoms(gen, MH_ROUNDS, MH_CHAINS, n10)
-    require_equal(f"K11 at N = {n10}", mh.mh_sample_onehot(nd, uu, p10, x10),
-                  codec.unpack_bits(mh.mh_onehot_plain(nd, uu, p10, codec.pack_bits(x10), n10), n10), errs,
-                  "mh_sample_onehot")
-    # where K11's ring shrinks beside a 32-chain tile: 2 stages at N = 52,000,
+    check_injected(f"at N = {n10}", nd, uu, p10, x10)
+    # where the ring shrinks beside a 32-chain tile: 2 stages at N = 52,000,
     # 1 at 55,000, and at 58,000 none (the stream read from device memory)
     for n_big in (52000, 55000, 58000):
         p_big = torch.rand(n_big, generator=gen, device=dev) * 0.6 + 0.2
         x_big = torch.rand(130, n_big, generator=gen, device=dev) < 0.5
         nd, uu = mh.make_round_randoms(gen, 300, 130, n_big)
-        require_equal(f"K11 at N = {n_big} (130 chains x 300 rounds)", mh.mh_sample_onehot(nd, uu, p_big, x_big),
-                      codec.unpack_bits(mh.mh_onehot_plain(nd, uu, p_big, codec.pack_bits(x_big), n_big), n_big),
-                      errs, "mh_sample_onehot")
-    del x10, p10, xb, pick, p_big, x_big
-    k12_out = mh.mh_sample_packed(nodes, acc2, mh_bits)
-    require_equal("K12 mh_sample_packed", k12_out,
-                  codec.unpack_bits(mh.mh_packed_plain(nodes, acc2, mh_words, n), n), errs, "mh_sample_packed")
+        check_injected(f"at N = {n_big} (130 chains x 300 rounds)", nd, uu, p_big, x_big)
+    del x10, p10, pick, p_big, x_big
     grid = torch.round(probs * 65536.0) / 65536.0  # 1 - (1 - p) == p in f32 on this grid
     require_equal("K11 vs K12 on probs of the 2^-16 grid", mh.mh_sample_onehot(nodes, u, grid, mh_bits),
                   mh.mh_sample_packed(nodes, mh.make_round_accepts(nodes, u, grid), mh_bits), errs, "mh_sample_onehot")
@@ -655,8 +847,6 @@ def main() -> int:
     phase("main", t0)
 
     # 5, 6. MCPG --fast on the weighted stand-ins ------------------------------
-    SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
-              "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
     weighted_counts, weighted_cfgs = {}, {}
     for gw, cfg_w, sweep_k in (
         (w22, dataclasses.replace(fast_cfg, reset_epoch_num=16), "mcpg_sweep_weighted"),
@@ -818,6 +1008,11 @@ def main() -> int:
                    f"{l2a_cfg.seq_len})", lambda: steps_l.ppo_update(gen_l, batch))
     del env_l, net, steps_l, batch, states, seq_graph
     phase("l2a_profile", t0)
+
+    # distribution-wise L2A at BA_1000's widths ----------------------------------
+    t0 = time.time()
+    dist_counts = run_l2a_dist(dev, errs)
+    phase("l2a_dist", t0)
 
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
@@ -1023,7 +1218,7 @@ def main() -> int:
              step_ops=MH_ROUNDS * MH_CHAINS * K11_OPS,
              chain_floor=True),
         dict(name="mh_sample_packed", kernel=mh.MH_PACKED, launches=injected_counts["mh_sample_packed"],
-             run=lambda: mh.MH_PACKED.launch(nodes, acc2, mh_w, MH_CHAINS, w_mh, n, MH_ROUNDS),
+             run=lambda: mh.MH_PACKED.launch(nodes, acc2, mh_w, MH_CHAINS, MH_CHAINS, w_mh, n, MH_ROUNDS),
              plain=lambda: mh.mh_packed_plain(nodes, acc2, mh_w, n), plain_chains=MH_CHAINS, reps=10,
              bytes=2 * MH_CHAINS * w_mh * 4 + MH_ROUNDS * MH_CHAINS * 8, step_ops=MH_ROUNDS * MH_CHAINS * K2_OPS),
     ]
@@ -1080,6 +1275,7 @@ def main() -> int:
               f"{kernels[-1].get('dense_bound_ms', bound_ms):.3f} ms); "
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
     for k in kernels:
+        k["l2a_dist_launches"] = dist_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

@@ -20,8 +20,8 @@ with `packed_sweep` (the CLI's `--fast`) in K5/K8a/K8b on integer weights;
 `fused_ls` runs K4, K6 or K7 through `FusedSweepEngine`. The transformer is
 plain tensor code, as XLA code in the JAX package.
 
-Not ported here: the distribution-wise variant (`l2a_distribution.py`),
-the data-parallel `axis_name` of `_build_l2a_steps`, and
+The distribution-wise variant is `algos/l2a_distribution.py`. Not ported
+here: the data-parallel `axis_name` of `_build_l2a_steps`, and
 `solve_maxcut_l2a_runner` (it needs the training loop of `train/runner.py`).
 """
 

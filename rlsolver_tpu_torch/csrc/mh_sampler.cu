@@ -28,24 +28,25 @@
 // __umulhi of a full 32-bit draw (see mh_fused). K11 kept a block's chains
 // as f32 {0, 1} in VMEM and found the proposed node by a one-hot pass over
 // all N lanes; here its chains are bits in shared memory, as K12's, and the
-// node is indexed directly. K12 reads 8 bytes per proposal (node and acc2),
-// coalesced across a warp's chains, with the common tile of 128 chains.
+// node is indexed directly.
 //
-// K11 (the port's first form read its stream as K12 does) paid a device
-// memory round trip every round: 0.737 ms for 1024 rounds, about 1,400
-// cycles a round, whatever the tile (scripts/torch_mh_tile.py). The TPU
-// kernel staged (rounds_chunk, block_chains) blocks of nodes and u in VMEM;
-// here their Hopper form: a block of kOnehotTile chains (one thread each)
-// and one producer thread, which keeps kOnehotStages stages of kOnehotChunk
-// rounds in flight in a ring in shared memory, one bulk copy per round row
-// of the tile for nodes and one for u, completing on the stage's mbarrier.
-// The consumers' round loop then reads only shared memory and probs[node]
-// (8 KB at N = 2000, in L1); what is left a round is the chain's own
-// dependence, its state word read, tested and written back. On an H100 it
-// runs 8192 chains x 1024 rounds in 0.11-0.14 ms, about 220-270 cycles a
-// round; tiles of 32 to 128 chains came within 14% of each other, and the
-// copies issued from all 32 lanes of the producer's warp were no faster
-// (PERF.md).
+// K11 and K12 (the port's first forms read their streams from device memory
+// every round) paid a device memory round trip a round: K11 0.737 ms and
+// K12 0.263 ms for 1024 rounds, about 1,400 cycles a round for K11, whatever
+// the tile (scripts/torch_mh_tile.py). The TPU kernels staged
+// (rounds_chunk, block_chains) blocks of the stream in VMEM; here their
+// Hopper form, one ring kernel for both: a block of kOnehotTile chains (one
+// thread each) and one producer thread, which keeps kOnehotStages stages of
+// kOnehotChunk rounds in flight in a ring in shared memory, one bulk copy
+// per round row of the tile for the nodes and one for the other 4-byte
+// stream (K11's u, K12's acc2), completing on the stage's mbarrier. The
+// consumers' round loop then reads only shared memory and, for K11,
+// probs[node] (8 KB at N = 2000, in L1); what is left a round is the
+// chain's own dependence, its state word read, tested and written back. On
+// an H100 K11 runs 8192 chains x 1024 rounds in 0.11-0.14 ms, about 220-270
+// cycles a round; tiles of 32 to 128 chains came within 14% of each other,
+// and the copies issued from all 32 lanes of the producer's warp were no
+// faster (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -86,31 +87,51 @@ __global__ void mh_stream_kernel(const uint32_t* __restrict__ stream, uint32_t* 
   rl::store_chains(sm, words, b0, nb, W);
 }
 
-// K11's own tile and ring (scripts/torch_mh_tile.py).
+// K11's and K12's tile and ring (scripts/torch_mh_tile.py).
 constexpr int kOnehotTile = 64;    // chains a block, a multiple of 32
 constexpr int kOnehotChunk = 32;   // rounds a ring stage holds
 constexpr int kOnehotStages = 4;   // stages in flight, at most
 constexpr int kRingOffset = 128;   // bytes of the barriers before the ring
 
-struct OnehotArgs {
+struct RingArgs {
   const int32_t* nodes;  // [R, Bp] proposals, 16-byte aligned, Bp % 4 == 0
-  const float* u;        // [R, Bp] uniforms, likewise
-  const float* probs;    // [N]
+  const uint32_t* vals;  // [R, Bp] K11's u (f32 bits) or K12's acc2, likewise
   uint32_t* words;       // [B, W] chains, updated in place
   int B, Bp, W, N, R;
   int S;                 // ring stages; 0: no ring, the stream is read from device memory
 };
 
-// K11: nodes and u [R, B], probs [N] f32. A node outside [0, N) is a no-op,
-// as in the one-hot TPU kernel. Threads 0..T-1 run the block's chains;
-// thread T issues the copies. Stage g holds rounds [g C, g C + C) of the
-// tile's columns in ring slot g % S: slot s's `full` barrier completes a
-// phase when its copies have landed, its `empty` barrier when all T
-// consumers have read it. The ring is read-only for the consumers, so a
-// padded or partial tile's extra columns are never read by a live chain.
-// Where not even one stage fits beside the chains (S = 0), the consumers
-// read their stream from device memory, as K12 does.
-__global__ void mh_onehot_kernel(const OnehotArgs a) {
+// K11's step: probs [N] f32; accept when u q < 1 - q, q = P(current value),
+// rounded as in f32.
+struct OnehotStep {
+  const float* probs;
+  __device__ __forceinline__ void operator()(uint32_t* my, uint32_t node, uint32_t u) const {
+    const uint32_t word = node >> 5, bit = node & 31u;
+    const float p = __ldg(probs + node);
+    const uint32_t x = my[word];
+    const float q = (x >> bit) & 1u ? p : __fsub_rn(1.0f, p);
+    my[word] = x ^ (static_cast<uint32_t>(__fmul_rn(__uint_as_float(u), q) < __fsub_rn(1.0f, q)) << bit);
+  }
+};
+
+// K12's step: acc2 bit c = accept given the current bit c.
+struct PackedStep {
+  __device__ __forceinline__ void operator()(uint32_t* my, uint32_t node, uint32_t acc2) const {
+    flip_by_acc2(my, node >> 5, node & 31u, acc2);
+  }
+};
+
+// K11 and K12: the stream's (node, val) pairs [R, B] through the ring, each
+// applied by `step`. A node outside [0, N) is a no-op, as in the TPU
+// kernels. Threads 0..T-1 run the block's chains; thread T issues the
+// copies. Stage g holds rounds [g C, g C + C) of the tile's columns in ring
+// slot g % S: slot s's `full` barrier completes a phase when its copies have
+// landed, its `empty` barrier when all T consumers have read it. The ring is
+// read-only for the consumers, so a padded or partial tile's extra columns
+// are never read by a live chain. Where not even one stage fits beside the
+// chains (S = 0), the consumers read their stream from device memory.
+template <class Step>
+__global__ void mh_ring_kernel(const RingArgs a, const Step step) {
   constexpr int C = kOnehotChunk;
   const int S = a.S;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -118,8 +139,8 @@ __global__ void mh_onehot_kernel(const OnehotArgs a) {
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + kOnehotStages;
   int32_t* ring_nodes = reinterpret_cast<int32_t*>(smem + kRingOffset);  // [S, C, T]
-  float* ring_u = reinterpret_cast<float*>(ring_nodes + S * C * T);       // [S, C, T]
-  uint32_t* sm = reinterpret_cast<uint32_t*>(ring_u + S * C * T);
+  uint32_t* ring_vals = reinterpret_cast<uint32_t*>(ring_nodes + S * C * T);  // [S, C, T]
+  uint32_t* sm = ring_vals + S * C * T;
   const long long b0 = (long long)blockIdx.x * T;
   const int nb = min((long long)T, a.B - b0);
   const uint32_t row_bytes = 4u * min((long long)T, a.Bp - b0);  // a multiple of 16
@@ -138,7 +159,7 @@ __global__ void mh_onehot_kernel(const OnehotArgs a) {
     for (int r = 0; r < rows; ++r) {
       const long long src = (long long)(g * C + r) * a.Bp + b0;
       rl::bulk_copy(ring_nodes + (s * C + r) * T, a.nodes + src, row_bytes, full + s);
-      rl::bulk_copy(ring_u + (s * C + r) * T, a.u + src, row_bytes, full + s);
+      rl::bulk_copy(ring_vals + (s * C + r) * T, a.vals + src, row_bytes, full + s);
     }
   };
   if (producer)
@@ -153,53 +174,27 @@ __global__ void mh_onehot_kernel(const OnehotArgs a) {
     const int t = threadIdx.x;
     const bool live = t < nb;
     uint32_t* my = sm + (live ? t : 0) * rl::smem_stride(a.W);
-    auto step = [&](uint32_t node, float uu) {
-      if (node >= (uint32_t)a.N) return;
-      const uint32_t word = node >> 5, bit = node & 31u;
-      const float p = __ldg(a.probs + node);
-      const uint32_t x = my[word];
-      // q = P(current value); accept when u q < 1 - q, rounded as in f32
-      const float q = (x >> bit) & 1u ? p : __fsub_rn(1.0f, p);
-      my[word] = x ^ (static_cast<uint32_t>(__fmul_rn(uu, q) < __fsub_rn(1.0f, q)) << bit);
+    auto run = [&](uint32_t node, uint32_t v) {
+      if (node < (uint32_t)a.N) step(my, node, v);
     };
     if (S == 0 && live)
       for (int r = 0; r < a.R; ++r) {
         const long long at = (long long)r * a.Bp + b0 + t;
-        step(static_cast<uint32_t>(__ldg(a.nodes + at)), __ldg(a.u + at));
+        run(static_cast<uint32_t>(__ldg(a.nodes + at)), __ldg(a.vals + at));
       }
     for (int g = 0; g < G; ++g) {
       const int s = g % S, rows = min(C, a.R - g * C);
       rl::mbar_wait(full + s, (g / S) & 1);
       const int32_t* rn = ring_nodes + s * C * T + t;
-      const float* ru = ring_u + s * C * T + t;
+      const uint32_t* rv = ring_vals + s * C * T + t;
       if (live) {
 #pragma unroll 4
-        for (int r = 0; r < rows; ++r) step(static_cast<uint32_t>(rn[r * T]), ru[r * T]);
+        for (int r = 0; r < rows; ++r) run(static_cast<uint32_t>(rn[r * T]), rv[r * T]);
       }
       rl::mbar_arrive(empty + s);
     }
   }
   rl::store_chains(sm, a.words, b0, nb, a.W);
-}
-
-// K12: nodes [R, B] int32, acc2 [R, B] int32 (bit c = accept given bit c).
-__global__ void mh_packed_kernel(const int32_t* __restrict__ nodes, const int32_t* __restrict__ acc2,
-                                 uint32_t* __restrict__ words, int B, int W, int N, int R) {
-  extern __shared__ uint32_t sm[];
-  const long long b0 = (long long)blockIdx.x * blockDim.x;
-  const int nb = min((long long)blockDim.x, B - b0);
-  rl::load_chains(sm, words, b0, nb, W);
-  if (threadIdx.x < nb) {
-    uint32_t* my = sm + threadIdx.x * rl::smem_stride(W);
-    const long long chain = b0 + threadIdx.x;
-#pragma unroll 4
-    for (int r = 0; r < R; ++r) {
-      const uint32_t node = static_cast<uint32_t>(__ldg(nodes + (long long)r * B + chain));
-      const uint32_t a = static_cast<uint32_t>(__ldg(acc2 + (long long)r * B + chain));
-      if (node < (uint32_t)N) flip_by_acc2(my, node >> 5, node & 31u, a);
-    }
-  }
-  rl::store_chains(sm, words, b0, nb, W);
 }
 
 template <bool kWide>
@@ -265,14 +260,15 @@ extern "C" int mh_fused(const float* thr, int32_t* words, int B, int W, int N, i
   return cudaGetLastError();
 }
 
-// nodes, u: [R, Bp] with Bp >= B a multiple of 4, 16-byte aligned (the
+// nodes, vals: [R, Bp] with Bp >= B a multiple of 4, 16-byte aligned (the
 // wrapper pads). While the ring and the tile's chains do not fit a block's
 // shared memory, the tile halves from kOnehotTile down to one warp, then the
-// ring's stages halve down to none; so K11 takes every W that a 32-chain
-// tile of words alone fits.
-extern "C" int mh_onehot(const int32_t* nodes, const float* u, const float* probs, int32_t* words, int B, int Bp,
-                         int W, int N, int R, cudaStream_t st) {
-  if (Bp < B || Bp % 4 || reinterpret_cast<uintptr_t>(nodes) % 16 || reinterpret_cast<uintptr_t>(u) % 16)
+// ring's stages halve down to none; so K11 and K12 take every W that a
+// 32-chain tile of words alone fits.
+template <class Step>
+int launch_ring(const int32_t* nodes, const void* vals, int32_t* words, int B, int Bp, int W, int N, int R,
+                const Step step, cudaStream_t st) {
+  if (Bp < B || Bp % 4 || reinterpret_cast<uintptr_t>(nodes) % 16 || reinterpret_cast<uintptr_t>(vals) % 16)
     return cudaErrorInvalidValue;
   int tile = kOnehotTile, stages = kOnehotStages;
   auto smem_of = [&](int t, int s) {
@@ -283,21 +279,20 @@ extern "C" int mh_onehot(const int32_t* nodes, const float* u, const float* prob
   while (stages > 0 && smem_of(tile, stages) > rl::kMaxSmem) stages /= 2;
   const size_t smem = smem_of(tile, stages);
   if (smem > rl::kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = rl::allow_smem(mh_onehot_kernel, smem);
+  const cudaError_t e = rl::allow_smem(mh_ring_kernel<Step>, smem);
   if (e != cudaSuccess) return e;
-  const OnehotArgs a{nodes, u, probs, reinterpret_cast<uint32_t*>(words), B, Bp, W, N, R, stages};
-  if (B > 0) mh_onehot_kernel<<<(B + tile - 1) / tile, tile + 32, smem, st>>>(a);
+  const RingArgs a{nodes, static_cast<const uint32_t*>(vals), reinterpret_cast<uint32_t*>(words), B, Bp, W, N, R,
+                   stages};
+  if (B > 0) mh_ring_kernel<Step><<<(B + tile - 1) / tile, tile + 32, smem, st>>>(a, step);
   return cudaGetLastError();
 }
 
-extern "C" int mh_packed(const int32_t* nodes, const int32_t* acc2, int32_t* words, int B, int W, int N, int R,
-                         cudaStream_t st) {
-  int threads;
-  size_t smem;
-  cudaError_t e = rl::prepare(mh_packed_kernel, W, &threads, &smem);
-  if (e != cudaSuccess) return e;
-  if (B > 0)
-    mh_packed_kernel<<<(B + threads - 1) / threads, threads, smem, st>>>(
-        nodes, acc2, reinterpret_cast<uint32_t*>(words), B, W, N, R);
-  return cudaGetLastError();
+extern "C" int mh_onehot(const int32_t* nodes, const float* u, const float* probs, int32_t* words, int B, int Bp,
+                         int W, int N, int R, cudaStream_t st) {
+  return launch_ring(nodes, u, words, B, Bp, W, N, R, OnehotStep{probs}, st);
+}
+
+extern "C" int mh_packed(const int32_t* nodes, const int32_t* acc2, int32_t* words, int B, int Bp, int W, int N,
+                         int R, cudaStream_t st) {
+  return launch_ring(nodes, acc2, words, B, Bp, W, N, R, PackedStep{}, st);
 }

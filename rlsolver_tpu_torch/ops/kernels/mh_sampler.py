@@ -28,15 +28,15 @@ a u16 uniform from the low 16 bits, accepted when u16 < threshold[cur].
     Both are bit-exact with their JAX kernels fed the same draws.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mh_sampler.cu`);
-on a CPU tensor it runs the plain PyTorch version. K11's kernel stages its
-(node, u) stream through a ring in shared memory, one bulk copy per round
-row of its chain tile, so its rows must be 16-byte aligned and a multiple
-of 16 bytes apart (`bulk_rows` pads them). The ring of 4 stages fits
-beside a tile of 64 chains up to W = 651 words (N = 20,832); beyond, the
-tile halves to 32 chains, then the stages halve (4 up to W = 1559, 2 up to
-1687, 1 up to 1751), and up to W = 1815 (N = 58,080), where the 32 chains'
-words alone fill a block's shared memory, the kernel reads the stream from
-device memory. None of K2, K11 and K12 is on a solver path, in this package
+on a CPU tensor it runs the plain PyTorch version. K11 and K12 run one ring
+kernel, which stages the (node, u) or (node, acc2) stream through a ring in
+shared memory, one bulk copy per round row of its chain tile, so the rows
+must be 16-byte aligned and a multiple of 16 bytes apart (`bulk_rows` pads
+them). The ring of 4 stages fits beside a tile of 64 chains up to W = 651
+words (N = 20,832); beyond, the tile halves to 32 chains, then the stages
+halve (4 up to W = 1559, 2 up to 1687, 1 up to 1751), and up to W = 1815
+(N = 58,080), where the 32 chains' words alone fill a block's shared
+memory, the kernel reads the stream from device memory. None of K2, K11 and K12 is on a solver path, in this package
 or the JAX one.
 """
 
@@ -63,7 +63,7 @@ MH_ONEHOT = register(Kernel(
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:72 _mh_kernel",
 ))
 MH_PACKED = register(Kernel(
-    "mh_sample_packed", "mh_sampler.cu", "mh_packed", "pppiiii",
+    "mh_sample_packed", "mh_sampler.cu", "mh_packed", "pppiiiii",
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:201 _mh_packed_kernel",
 ))
 
@@ -230,7 +230,7 @@ def _check_rounds(nodes, other, name, dtype, b):
 
 
 def bulk_rows(t: torch.Tensor) -> torch.Tensor:
-    """t [R, B] as rows that K11 copies in bulk, 16-byte aligned and a
+    """t [R, B] as rows that K11 and K12 copy in bulk, 16-byte aligned and a
     multiple of 16 bytes apart: t itself where B % 4 == 0 and t is aligned,
     else a copy into a `torch.empty` buffer [R, B_pad], B_pad the next
     multiple of 4, whose extra columns no chain reads."""
@@ -258,11 +258,13 @@ def mh_sample_onehot(nodes: torch.Tensor, u: torch.Tensor, probs: torch.Tensor, 
 
 
 def mh_sample_packed(nodes: torch.Tensor, acc2: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """K12: the R rounds of (nodes, acc2) [R, B] on chains bits bool [B, N]."""
+    """K12: the R rounds of (nodes, acc2) [R, B] on chains bits bool [B, N].
+    On the card, nodes and acc2 are padded by `bulk_rows` as for K11."""
     b, n = bits.shape
     words = pack_bits(bits)
     if not words.is_cuda:
         return unpack_bits(mh_packed_plain(nodes, acc2, words, n), n)
     _check_rounds(nodes, acc2, "acc2", torch.int32, b)
-    MH_PACKED.launch(nodes, acc2, words, b, num_words(n), n, nodes.shape[0])
+    nodes_p, acc2_p = bulk_rows(nodes), bulk_rows(acc2)
+    MH_PACKED.launch(nodes_p, acc2_p, words, b, nodes_p.shape[1], num_words(n), n, nodes.shape[0])
     return unpack_bits(words, n)

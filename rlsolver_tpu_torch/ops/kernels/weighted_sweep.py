@@ -73,17 +73,24 @@ WSWEEP_1FLIP_LEVELS = register(Kernel(
 MAX_ABS_WEIGHT = 1 << 15  # k <= 15 planes; the kernels are built for k = 1..15
 
 
-def _max_abs_weight(weights: np.ndarray) -> int:
-    """max |w| of integer weights; ValueError otherwise (as the JAX package)."""
+def weight_fault(weights: np.ndarray) -> Optional[str]:
+    """Why no packed kernel takes these edge weights, or None where one
+    does (integers, 0 < max |w| < 2^15)."""
     w = np.asarray(weights, np.float64)
     if not np.array_equal(w, np.rint(w)):
-        raise ValueError("weighted packed sweep requires integer edge weights")
+        return "weighted packed sweep requires integer edge weights"
     w_max = int(np.abs(w).max()) if w.size else 0
     if w_max >= MAX_ABS_WEIGHT:
-        raise ValueError(f"|weight| must be < {MAX_ABS_WEIGHT}, got {w_max}")
-    if w_max == 0:
-        raise ValueError("graph has no edges")
-    return w_max
+        return f"|weight| must be < {MAX_ABS_WEIGHT}, got {w_max}"
+    return "graph has no edges" if w_max == 0 else None
+
+
+def _max_abs_weight(weights: np.ndarray) -> int:
+    """max |w| of integer weights; ValueError otherwise (as the JAX package)."""
+    fault = weight_fault(weights)
+    if fault is not None:
+        raise ValueError(fault)
+    return int(np.abs(np.asarray(weights, np.float64)).max())
 
 
 def weight_planes(graph: Graph) -> Tuple[int, bool]:

@@ -1,19 +1,19 @@
-"""Time K11 (`mh_onehot`) of the PyTorch/CUDA port, whose stream is staged
-through a ring in shared memory, at several chain tiles: the numbers behind
-its tile `kOnehotTile` in rlsolver_tpu_torch/csrc/mh_sampler.cu.
+"""Time K11 (`mh_onehot`) and K12 (`mh_packed`) of the PyTorch/CUDA port,
+whose streams are staged through one ring kernel in shared memory, at
+several chain tiles: the numbers behind their tile `kOnehotTile` in
+rlsolver_tpu_torch/csrc/mh_sampler.cu.
 
     python3 scripts/torch_mh_tile.py [--chains 8192,32768,131072] [--tiles 32,64,128]
                                      [--rounds 1024]
 
 Needs one CUDA card. For each tile, a copy of rlsolver_tpu_torch/csrc/ with
-K11's chains per block (`kOnehotTile`) set to the tile is built with the
-library's nvcc flags, all builds at once. On the G22-like graph (N = 2000)
-and each chain count, seeded (node, u) draws of `--rounds` rounds go
-through K11 of every build; all builds must give the same bits, and those
-of the plain version. Each build's K11 is timed with CUDA events after a
-warm-up launch, the builds in the order given and then reversed, and the
-two times averaged; K12 (`mh_packed`, the common tile of 128 chains) is
-timed beside them on the same draws. One JSON line per chain count; the
+the ring kernel's chains per block (`kOnehotTile`) set to the tile is built
+with the library's nvcc flags, all builds at once. On the G22-like graph
+(N = 2000) and each chain count (a multiple of 4), seeded (node, u) draws of
+`--rounds` rounds and their acc2 go through K11 and K12 of every build; all
+builds must give the same bits as the plain versions. Each build's K11 and
+K12 are timed with CUDA events, the builds in the order given and then
+reversed, and the two times averaged. One JSON line per chain count; the
 card's name and power limit come first.
 """
 
@@ -102,7 +102,7 @@ def main() -> int:
                 raise RuntimeError(f"nvcc failed for tile {t}:\n{log}")
         libs = {t: ctypes.CDLL(os.path.join(work, f"libmh_{t}.so")) for t in tiles}
         k11 = {t: bind(lib, mh.MH_ONEHOT) for t, lib in libs.items()}
-        k12 = bind(libs[tiles[0]], mh.MH_PACKED)
+        k12 = {t: bind(lib, mh.MH_PACKED) for t, lib in libs.items()}
 
         dev = torch.device("cuda")
         g = build_g22_like()
@@ -111,27 +111,31 @@ def main() -> int:
         gen.manual_seed(2026)
         probs = torch.rand(n, generator=gen, device=dev) * 0.6 + 0.2
         for chains in (int(c) for c in args.chains.split(",")):
+            if chains % 4:
+                raise ValueError(f"--chains: {chains} is not a multiple of 4 (the ring's rows)")
             words0 = codec.pack_bits(torch.rand(chains, n, generator=gen, device=dev) < 0.5)
             nodes, u = mh.make_round_randoms(gen, args.rounds, chains, n)
             acc2 = mh.make_round_accepts(nodes, u, probs)
 
-            def run(t, words):
-                k11[t](nodes, u, probs, words, chains, chains, w, n, args.rounds)
-
-            plain = mh.mh_onehot_plain(nodes, u, probs, words0, n)
-            for t in tiles:
-                out = words0.clone()
-                run(t, out)
-                if not torch.equal(out, plain):
-                    raise AssertionError(f"K11 with a tile of {t} differs from the plain version at {chains} chains")
-            scratch = words0.clone()
-            times = {t: [] for t in tiles}
-            for t in tiles + tiles[::-1]:
-                times[t].append(event_ms(lambda: run(t, scratch)))
-            k12_ms = [event_ms(lambda: k12(nodes, acc2, scratch, chains, w, n, args.rounds)) for _ in range(2)]
-            row = {"chains": chains, "rounds": args.rounds, "nodes": n,
-                   "mh_sample_onehot": {str(t): sum(v) / len(v) for t, v in times.items()},
-                   "mh_sample_packed": sum(k12_ms) / len(k12_ms)}
+            runs = {"mh_sample_onehot": lambda t, words: k11[t](nodes, u, probs, words, chains, chains, w, n,
+                                                                args.rounds),
+                    "mh_sample_packed": lambda t, words: k12[t](nodes, acc2, words, chains, chains, w, n,
+                                                                args.rounds)}
+            plains = {"mh_sample_onehot": mh.mh_onehot_plain(nodes, u, probs, words0, n),
+                      "mh_sample_packed": mh.mh_packed_plain(nodes, acc2, words0, n)}
+            row = {"chains": chains, "rounds": args.rounds, "nodes": n}
+            for name, run in runs.items():
+                for t in tiles:
+                    out = words0.clone()
+                    run(t, out)
+                    if not torch.equal(out, plains[name]):
+                        raise AssertionError(f"{name} with a tile of {t} differs from the plain version at "
+                                             f"{chains} chains")
+                scratch = words0.clone()
+                times = {t: [] for t in tiles}
+                for t in tiles + tiles[::-1]:
+                    times[t].append(event_ms(lambda: run(t, scratch)))
+                row[name] = {str(t): sum(v) / len(v) for t, v in times.items()}
             print(json.dumps(row), flush=True)
         del libs, k11, k12
     print(smi)

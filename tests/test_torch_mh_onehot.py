@@ -101,3 +101,48 @@ def test_plain_stationary_marginals(sampler):
     else:
         out = tmh.mh_sample_packed(nodes, tmh.make_round_accepts(nodes, u, probs), bits)
     np.testing.assert_allclose(out.float().mean(0).numpy(), PROBS8, atol=0.05)
+
+
+def test_k12_plain_bit_exact_vs_jax_at_b_not_a_multiple_of_4():
+    # 250 chains (B % 4 == 2) in two Pallas blocks of 125: the rows K12's
+    # kernel copies in bulk are padded on the card, never on the CPU
+    n, b = 71, 250
+    key, probs, bits, rounds, nodes, u = _case(n, 13, b=b)
+    packed = np.asarray(jmh.mh_sample_packed(key, jnp.asarray(probs), jnp.asarray(bits), num_rounds=rounds,
+                                             block_chains=125, interpret=True))
+    acc2 = tmh.make_round_accepts(nodes, u, torch.from_numpy(probs))
+    k12 = tmh.mh_sample_packed(nodes, acc2, torch.from_numpy(bits)).numpy()
+    np.testing.assert_array_equal(k12, packed)
+    assert (k12 != bits).any()
+
+
+@pytest.mark.parametrize("b", [9, 10, 11])  # B % 4 in {1, 2, 3}
+def test_k12_padded_rows_never_change_a_chain(b):
+    rng = np.random.default_rng(b)
+    n, rounds = 40, 64
+    probs = torch.from_numpy(rng.uniform(0.1, 0.9, n).astype(np.float32))
+    gen = torch.Generator().manual_seed(b)
+    nodes, u = tmh.make_round_randoms(gen, rounds, b, n)
+    acc2 = tmh.make_round_accepts(nodes, u, probs)
+    nodes_p, acc2_p = tmh.bulk_rows(nodes), tmh.bulk_rows(acc2)
+    bp = -(-b // 4) * 4
+    assert nodes_p.shape == acc2_p.shape == (rounds, bp) and acc2_p.dtype == torch.int32
+    assert nodes_p.data_ptr() % 16 == 0 and acc2_p.data_ptr() % 16 == 0
+    assert torch.equal(nodes_p[:, :b], nodes) and torch.equal(acc2_p[:, :b], acc2)
+    # whatever the extra columns hold (here proposals that always flip), the
+    # chains of the padded rows, run by the plain version, are unchanged
+    nodes_p[:, b:] = torch.randint(0, n, (rounds, bp - b), generator=gen, dtype=torch.int32)
+    acc2_p[:, b:] = 3
+    bits = torch.from_numpy(rng.random((b, n)) < 0.5)
+    extra = torch.from_numpy(rng.random((bp - b, n)) < 0.5)
+    padded = tmh.mh_sample_packed(nodes_p, acc2_p, torch.cat([bits, extra]))
+    assert torch.equal(padded[:b], tmh.mh_sample_packed(nodes, acc2, bits))
+    assert not torch.equal(padded[b:], extra)
+
+
+def test_k12_rows_not_16_byte_aligned_are_copied():
+    base = torch.arange(4 + 3 * 8, dtype=torch.int32)
+    acc2 = base[1 : 1 + 3 * 8].view(3, 8)  # B % 4 == 0, but 4 bytes past an aligned start
+    assert acc2.data_ptr() % 16 == 4
+    rows = tmh.bulk_rows(acc2)
+    assert rows is not acc2 and rows.data_ptr() % 16 == 0 and torch.equal(rows, acc2)
