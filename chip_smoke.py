@@ -85,6 +85,25 @@ Phases (each prints its seconds; any failure exits non-zero):
                cuts are printed beside the JAX package's
                (results_quality/dist_table.csv); then the device time by
                kernel of one training iteration and one eval round;
+     mcpg_multi — `mcpg_multi.solve_mcpg(sampler="fused")` at 256 chains x
+               32 repeats = 8192 samples a round, depth cut to 3 rounds, on
+               maxcut_edge, the +-1 and the binary QUBO (`maxcut_to_qubo`)
+               and the r-Cheeger cut of G22-like, a uniform random 3-SAT of
+               SATLIB's uf250-1065 shape, MIMO detection at 400 x 400 and
+               10 dB (with ZF's and MMSE's bit error rates) and a 2000-item
+               subset-sum with 8 tags: K3 must launch in every solve, equal
+               its plain version on the first 256 chains at each problem's
+               (N, 8192 chains, MH rounds), and every best score its float64
+               host re-score; then the device time by kernel of one QUBO and
+               one MaxSAT round (`run_mcpg_multi`);
+     mcpg_batch — `solve_maxcut_mcpg_batched` with DIST_TABLE's MCPG protocol
+               (256 x 32 chains, 8 sweeps, 6 epochs of 8 rounds) at full
+               depth on BA_100_ID0..9 and on BA_1000_ID0..9, each family in
+               one call: best cuts equal to their host re-scores, printed
+               beside the JAX run's (results_quality/dist_table.csv); the
+               device time of one BA_1000 round; then one round of MCPG's
+               colored sweep mode on G22-like beside one of the sequential
+               mode, their best cuts within 2% (`run_mcpg_batch`);
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
@@ -479,6 +498,240 @@ def run_l2a_dist(dev, errs: dict) -> dict:
     eval_round()
     profile_device(f"one eval round on {g0.name} ({DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates)",
                    eval_round)
+    return counts
+
+
+MULTI_CHAINS, MULTI_REPEATS = 256, 32  # mcpg_multi at full width: 8192 samples a round
+MULTI_ROUNDS = 3  # depth cut from MultiMCPGConfig's 64 rounds
+MULTI_PLAIN = 256  # of the 8192 chains, those K3's plain version checks
+# DIST_TABLE's MCPG protocol, as scripts/quality_table.py:159-165 runs it
+BATCH_CFG = dict(total_mcmc_num=256, repeat_times=32, num_ls=8, max_epoch_num=6, reset_epoch_num=64)
+
+
+def uniform_3sat(num_vars: int = 250, num_clauses: int = 1065, seed: int = 250):
+    """A uniform random 3-SAT instance of SATLIB's uf250-1065 shape: each
+    clause three distinct variables, each negated with probability 1/2,
+    drawn by numpy.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    clauses = []
+    for _ in range(num_clauses):
+        vs = rng.choice(num_vars, size=3, replace=False) + 1
+        clauses.append([int(v) * int(s) for v, s in zip(vs, rng.choice((-1, 1), size=3))])
+    return clauses
+
+
+def jax_mcpg_cuts(n: int):
+    """The JAX package's MCPG cut per BA_n instance id in
+    results_quality/dist_table.csv (the campaign's own run: the first row
+    of each id)."""
+    import csv
+    out = {}
+    with open(os.path.join(REPO, "results_quality", "dist_table.csv")) as f:
+        for r in csv.DictReader(f):
+            if r["dist"] == "BA" and r["n"] == str(n) and r["alg"] == "mcpg":
+                out.setdefault(int(r["id"]), float(r["obj"]))
+    return out
+
+
+def run_mcpg_multi(dev, errs: dict) -> dict:
+    """`solve_mcpg(sampler="fused")` at 256 chains x 32 repeats on each
+    problem of the slice, MULTI_ROUNDS rounds each: prints s/round, K3's
+    share of a round (K3 timed alone at the problem's shape), the best score
+    beside its float64 host re-score (equal to f32 precision; exactly on
+    integer data), the peak memory and the launches; K3 must launch in
+    every solve and equal its plain version on the first MULTI_PLAIN chains
+    at the problem's shape (into `errs`). Then the device time by kernel of
+    one round of the +-1 QUBO and of MaxSAT. Returns the launches summed
+    over the solves and K3's ms and bound at each problem's shape."""
+    from rlsolver_tpu_torch.algos import mcpg_multi as mm
+    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.ops.kernels import build, codec, mh_sampler as mh
+    from rlsolver_tpu_torch.problems import cheeger, maxsat, mimo, qubo, subset_sum
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    g = build_g22_like()
+    adj = g.adjacency_dense(np.float64)
+    e0, e1, ew = g.edges[:, 0], g.edges[:, 1], g.weights.astype(np.float64)
+    q = qubo.maxcut_to_qubo(adj)
+    clauses = uniform_3sat()
+    sat_inst = maxsat.MaxSatInstance.from_clauses(250, clauses)
+    mimo_inst = mimo.generate_mimo(k=400, m=400, snr_db=10.0, seed=0)
+    rng = np.random.default_rng(2000)
+    amounts, tags = rng.integers(-5000, 5001, 2000), rng.integers(0, 8, 2000)
+    sat_env = maxsat.MaxSatEnv(sat_inst, dev)
+    mimo_env = mimo.MimoEnv(mimo_inst, dev)
+
+    def sat_host(x):
+        lits = np.where(sat_inst.clause_signs > 0, x[sat_inst.clause_vars], ~x[sat_inst.clause_vars])
+        return float((lits & (sat_inst.clause_signs != 0)).any(axis=1) @ sat_inst.weights.astype(np.float64))
+
+    def cheeger_host(x):
+        cut = float(ew[x[e0] != x[e1]].sum())
+        size = int(x.sum())
+        return -cut / min(size, g.num_nodes - size)
+
+    def subset_host(x):
+        comps = [x.sum(), abs(amounts @ x)] + [abs((amounts * (tags == t)) @ x) for t in range(8)]
+        return float(comps[0] - sum(comps[1:]))
+
+    sym = (q + q.T) / 2.0
+    problems = [  # (name, problem, host re-score of bits, integer-valued)
+        ("maxcut_edge on G22like", mm.maxcut_edge_problem(g, device=dev), lambda x: obj_maxcut(x.astype(np.int64), g),
+         True),
+        ("qubo +-1 on G22like", mm.qubo_problem(qubo.QuboEnv(q, dev)),
+         lambda x: float((2.0 * x - 1) @ sym @ (2.0 * x - 1)), True),
+        ("qubo binary on G22like", mm.qubo_problem(qubo.QuboEnv(q, dev), binary=True),
+         lambda x: float(x.astype(np.float64) @ sym @ x), True),
+        ("maxsat uf250-1065-like", mm.maxsat_problem(sat_env), sat_host, True),
+        ("r-cheeger on G22like", mm.cheeger_problem(cheeger.CheegerEnv(g, device=dev)), cheeger_host, False),
+        ("mimo 400x400 10 dB", mm.mimo_problem(mimo_env),
+         lambda x: -float(np.sum((mimo_inst.y - mimo_inst.h @ (2.0 * x - 1)) ** 2)), False),
+        ("subset_sum 2000 items 8 tags", subset_sum.subset_sum_problem(subset_sum.SubsetSumEnv(amounts, tags, device=dev)),
+         subset_host, True),
+    ]
+    cfg = mm.MultiMCPGConfig(num_chains=MULTI_CHAINS, repeat_times=MULTI_REPEATS, num_rounds=MULTI_ROUNDS,
+                             sampler="fused", seed=0)
+    total = {k.name: 0 for k in build.KERNELS}
+    k3_shapes = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    print(f"  MultiMCPGConfig: {MULTI_CHAINS} chains x {MULTI_REPEATS} repeats = {MULTI_CHAINS * MULTI_REPEATS} "
+          f"samples a round, sampler fused (K3); depth cut to {MULTI_ROUNDS} of 64 rounds", flush=True)
+    for name, prob, host_fn, integral in problems:
+        rounds = mm.mh_rounds(prob, cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        secs = []
+        res = mm.solve_mcpg(prob, cfg, device=dev, timings=secs)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in build.KERNELS}
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in counts.items():
+            total[k] += v
+        host = host_fn(res.best_bits.astype(bool))
+        rel = abs(res.best_score - host) / max(1.0, abs(host))
+        # K3 at the problem's shape: timed alone, and held against its plain version
+        probs = torch.rand(prob.num_vars, generator=gen, device=dev) * 0.6 + 0.2
+        chains = torch.rand(MULTI_CHAINS * MULTI_REPEATS, prob.num_vars, generator=gen, device=dev) < 0.5
+        thr, words = mh.fused_thresholds(probs), codec.pack_bits(chains)
+        k3_ms = cuda_ms(lambda: mh.MH_FUSED.launch(thr, words.clone(), chains.shape[0], words.shape[1], prob.num_vars,
+                                                   rounds, 4321), 5) - cuda_ms(words.clone, 5)
+        k3_bound = bound(2 * words.numel() * 4 + thr.numel() * 4, rounds * chains.shape[0] * K3_OPS, 0)
+        k3_shapes.append(dict(problem=name, chains=chains.shape[0], n=prob.num_vars, rounds=rounds, ms=k3_ms,
+                              bound_ms=k3_bound[0], bound_by=k3_bound[1]))
+        out = mh.mh_sample_fused(4321, probs, chains, rounds)[:MULTI_PLAIN]
+        plain = codec.unpack_bits(mh.mh_fused_plain(4321, thr, words[:MULTI_PLAIN], prob.num_vars, rounds),
+                                  prob.num_vars)
+        require_equal(f"K3 mh_sample_fused at {name}'s shape (first {MULTI_PLAIN} of {chains.shape[0]} chains, "
+                      f"N = {prob.num_vars}, {rounds} rounds)", out, plain, errs, "mh_sample_fused")
+        steady = secs[1:] or secs
+        print(f"  {name}: N = {prob.num_vars}, {rounds} MH rounds; seconds per round {secs} (K3 {k3_ms:.4f} ms, "
+              f"bound {k3_bound[0]:.4f} ms, {100 * k3_ms / 1e3 / np.mean(steady):.3f}% of a later round); best score "
+              f"{res.best_score} host re-score {host} (relative difference {rel:.3g}); history {res.history}; "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB that earlier phases hold; launches {counts}", flush=True)
+        if counts["mh_sample_fused"] <= 0:
+            raise AssertionError(f"mcpg_multi on {name} did not launch mh_sample_fused")
+        if (integral and res.best_score != host) or not rel <= 1e-5:
+            raise AssertionError(f"mcpg_multi on {name}: best score {res.best_score} != host re-score {host}")
+        if name.startswith("mimo"):
+            ber = lambda x: float(np.mean(x != mimo_inst.x_true))
+            print(f"    bit error rate: MCPG {ber(np.where(res.best_bits, 1.0, -1.0))}, ZF "
+                  f"{ber(mimo.detect_zf(mimo_inst))}, MMSE {ber(mimo.detect_mmse(mimo_inst))}")
+        del chains, words, out, plain
+
+    # where one round's device time goes: the dense-field QUBO and MaxSAT
+    for name, prob, _, _ in (problems[1], problems[3]):
+        policy, optimizer = mm.new_policy(prob.num_vars, cfg, dev)
+        chains = torch.rand(MULTI_CHAINS, prob.num_vars, generator=gen, device=dev) < 0.5
+        vs = prob.score(chains)
+
+        def one_round():
+            mm.round_step(prob, cfg, policy, optimizer, gen, chains, chains, vs)
+
+        one_round()
+        profile_device(f"one mcpg_multi round, {name} ({MULTI_CHAINS * MULTI_REPEATS} samples)", one_round)
+    return total, k3_shapes
+
+
+def run_mcpg_batch(dev) -> dict:
+    """DIST_TABLE's MCPG protocol (BATCH_CFG) on BA_100_ID0..9 and
+    BA_1000_ID0..9, each family in one batched call: prints the seconds,
+    s/round, peak memory and each best cut beside its host re-score (equal)
+    and the JAX run's (results_quality/dist_table.csv); then the device time
+    of one BA_1000 round; then one round of MCPG's colored sweep mode on
+    G22-like beside one of the sequential mode. Returns the launches."""
+    from rlsolver_tpu_torch.algos import mcpg_batch as mb
+    from rlsolver_tpu_torch.algos.mcpg import MCPGConfig, solve_maxcut_mcpg
+    from rlsolver_tpu_torch.core.generate import build_g22_like, graph_from_name
+    from rlsolver_tpu_torch.ops.kernels import build
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    cfg = MCPGConfig(**BATCH_CFG, seed=0)
+    print(f"  MCPGConfig {BATCH_CFG}: {cfg.max_epoch_num} epochs of "
+          f"{cfg.reset_epoch_num // cfg.sample_epoch_num} rounds, full depth", flush=True)
+    build.reset_counts()
+    for n in (100, 1000):
+        graphs = [graph_from_name(f"BA_{n}_ID{i}") for i in range(10)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        t0, secs = time.time(), []
+        x, v, history = mb.solve_maxcut_mcpg_batched(graphs, cfg, device=dev, timings=secs)
+        wall = time.time() - t0
+        jax_cuts = jax_mcpg_cuts(n)
+        host = [obj_maxcut(x[i].astype(np.int64), gr) for i, gr in enumerate(graphs)]
+        print(f"  BA_{n}_ID0..9: {wall:.2f} s in all; seconds per round: first {secs[0]:.4f}, then min "
+              f"{min(secs[1:]):.4f} median {np.median(secs[1:]):.4f} max {max(secs[1:]):.4f}; max_memory_allocated "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB that "
+              f"earlier phases hold; mean best by epoch "
+              f"{[round(float(h['best'].mean()), 2) for h in history]}", flush=True)
+        print(f"  BA_{n} cuts {v.tolist()} (mean {v.mean():.2f}); JAX {[jax_cuts[i] for i in range(10)]} (mean "
+              f"{np.mean(list(jax_cuts.values())):.2f}, spread {min(jax_cuts.values())}-{max(jax_cuts.values())}); "
+              f"port - JAX {[float(v[i] - jax_cuts[i]) for i in range(10)]}", flush=True)
+        if host != v.tolist():
+            raise AssertionError(f"mcpg_batch BA_{n}: best cuts {v.tolist()} != host re-scores {host}")
+    counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"  launches {counts} (mcpg_batch runs no kernel of the port: torch loops)")
+
+    # where one BA_1000 round's device time goes
+    sg = mb.StackedGraphs.build(graphs, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    start = torch.rand(10, cfg.total_mcmc_num * cfg.repeat_times, 1000, generator=gen, device=dev) < 0.5
+    best_xs = start[:, : cfg.total_mcmc_num].clone()
+    best_vs = mb.cut_values_stacked(best_xs, sg)
+    logits, optimizer = mb.new_logits(10, 1000, cfg, dev)
+
+    def batch_round():
+        mh_b, ls_b, cuts_b = mb.sample_round(gen, logits, start, sg, cfg)
+        mb.reduce_round(ls_b, cuts_b, best_xs.clone(), best_vs.clone(), cfg.repeat_times)
+        mb.update_round(logits, optimizer, mh_b, cuts_b, sg, cfg.sample_epoch_num)
+
+    batch_round()
+    profile_device(f"one mcpg_batch round on BA_1000_ID0..9 (10 x {start.shape[1]} chains)", batch_round)
+    del sg, start
+
+    # MCPG's colored sweep mode, one round on G22-like beside the sequential mode
+    g = build_g22_like()
+    for mode in ("sequential", "colored"):
+        one = MCPGConfig(max_epoch_num=1, reset_epoch_num=8, sweep_mode=mode, seed=0)
+        torch.cuda.synchronize()
+        x, v, ev = solve_maxcut_mcpg(g, one, device=dev)
+        secs = ev.records[-1][2] - ev.records[0][2]
+        host = obj_maxcut(x.astype(np.int64), g)
+        print(f"  {mode} sweep mode on G22like ({one.total_mcmc_num} x {one.repeat_times} chains, {one.num_ls} "
+              f"sweeps): one round {secs:.4f} s; best cut {v} host re-score {host} (warm start {ev.records[0][1]})",
+              flush=True)
+        if host != v:
+            raise AssertionError(f"{mode} sweep mode: best cut {v} != host re-score {host}")
+        if mode == "sequential":
+            seq_cut = v
+        elif not abs(v - seq_cut) <= 0.02 * seq_cut:
+            raise AssertionError(f"colored sweep mode: best cut {v} is more than 2% off the sequential mode's "
+                                 f"{seq_cut}")
     return counts
 
 
@@ -1014,6 +1267,14 @@ def main() -> int:
     dist_counts = run_l2a_dist(dev, errs)
     phase("l2a_dist", t0)
 
+    # MCPG across problems and batched MCPG ------------------------------------
+    t0 = time.time()
+    multi_counts, k3_shapes = run_mcpg_multi(dev, errs)
+    phase("mcpg_multi", t0)
+    t0 = time.time()
+    batch_counts = run_mcpg_batch(dev)
+    phase("mcpg_batch", t0)
+
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
@@ -1276,6 +1537,10 @@ def main() -> int:
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
     for k in kernels:
         k["l2a_dist_launches"] = dist_counts[k["name"]]
+        k["mcpg_multi_launches"] = multi_counts[k["name"]]
+        if k["name"] == "mh_sample_fused":
+            k["mcpg_multi_shapes"] = k3_shapes
+        k["mcpg_batch_launches"] = batch_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

@@ -16,7 +16,8 @@ at row r * C + c. With `sampler="fused"` and `sweep_mode="packed"` (the CLI's
 `FusedSweepEngine` picks: K4 on {0, +-1}-weight graphs, K6 or K7 on other
 integer weights. Whenever `sweep_mode="packed"` the warm start's local search
 ends in K5, K8a or K8b. On non-integer weights `sweep_mode="packed"` raises
-ValueError, as in the JAX package.
+ValueError, as in the JAX package. `sweep_mode="colored"` updates one color
+class of `Graph.greedy_coloring` at a time from one f32 GEMM (`colored_sweep`).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from rlsolver_tpu_torch.ops.kernels.engine import FusedSweepEngine
 from rlsolver_tpu_torch.ops.kernels.mh_sampler import mh_sample_fused
 from rlsolver_tpu_torch.ops.reductions import pick_xs_by_vs, update_xs_by_vs
 from rlsolver_tpu_torch.ops.sampling import metropolis_bitflip_chain
-from rlsolver_tpu_torch.ops.sweeps import SweepData, degree_ordered_sweep, mcpg_init_values
+from rlsolver_tpu_torch.ops.sweeps import SweepData, colored_sweep, degree_ordered_sweep, mcpg_init_values
 from rlsolver_tpu_torch.optim import ClippedAdam
 
 
@@ -54,7 +55,8 @@ class MCPGConfig:
     change_times: Optional[int] = None  # MH accept budget per chain; default N/10
     warmup_ls_rounds: int = 4  # incumbent warm start via parallel local search
     seed: int = 0
-    sweep_mode: str = "sequential"  # "sequential" (gathers) | "packed" (kernels K4, K6, K7)
+    # "sequential" (gathers) | "colored" (a class at a time, one GEMM each) | "packed" (kernels K4, K6, K7)
+    sweep_mode: str = "sequential"
     # "budgeted" (reference accept budget) | "fused" (kernel K3, 2 * change_times rounds)
     sampler: str = "budgeted"
 
@@ -117,8 +119,8 @@ def _build_steps(env: MaxcutEnv, data: Optional[SweepData], cfg: MCPGConfig) -> 
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.sweep_mode == "packed":
         engine = FusedSweepEngine.build(env.graph, env.device)
-    elif cfg.sweep_mode != "sequential":
-        raise NotImplementedError(f"sweep_mode {cfg.sweep_mode!r} is not yet ported")
+    elif cfg.sweep_mode not in ("sequential", "colored"):
+        raise ValueError(f"unknown sweep_mode {cfg.sweep_mode!r}")
 
     def sample_step(gen, probs, start_bits):
         """start_bits bool [R*C, N] -> (mh_samples, ls_bits, cuts [R*C])."""
@@ -128,9 +130,13 @@ def _build_steps(env: MaxcutEnv, data: Optional[SweepData], cfg: MCPGConfig) -> 
             mh = metropolis_bitflip_chain(gen, probs, start_bits, change_times).samples
         if cfg.sweep_mode == "packed":
             ls_bits = engine.sweep(_kernel_seed(gen), mh, cfg.num_ls)
-        else:
+        elif cfg.sweep_mode == "sequential":
             xt = degree_ordered_sweep(gen, mcpg_init_values(mh), data, num_sweeps=cfg.num_ls)
             ls_bits = xt[:, :num_nodes] > 0.5
+        else:
+            xs = colored_sweep(gen, mh.to(torch.float32), env.cg.adj, env.cg.deg_w, data.color_masks,
+                               num_sweeps=cfg.num_ls)
+            ls_bits = xs > 0.5
         return mh, ls_bits, env.obj(ls_bits)
 
     def reduce_step(ls_bits, cuts, best_xs, best_vs):
@@ -183,7 +189,7 @@ def solve_maxcut_mcpg(
     dev = resolve_device(device)
     # packed sweep_mode also runs the warm start's 1-flip sweep on K5 or K8
     env = MaxcutEnv(graph, dev, packed_sweep=cfg.sweep_mode == "packed")
-    data = SweepData.build(graph, dev) if cfg.sweep_mode == "sequential" else None
+    data = SweepData.build(graph, dev) if cfg.sweep_mode != "packed" else None
     C, R = cfg.total_mcmc_num, cfg.repeat_times
     steps = _build_steps(env, data, cfg)
     gen = torch.Generator(device=dev)

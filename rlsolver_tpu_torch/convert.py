@@ -12,7 +12,9 @@ The JAX state arrives as numpy arrays (the caller converts with
   * the optax state of `chain(clip_by_global_norm, adam)` (or of a plain
     `adam`) — nested tuples holding one `ScaleByAdamState(count, mu, nu)`
     with mu, nu shaped like the params — becomes the state of the port's
-    `ClippedAdam`, over the module's parameters in `named_parameters` order.
+    `ClippedAdam`, over the module's parameters in `named_parameters` order,
+    or over the one raw array where the params are one (mcpg_batch's
+    logits [G, N], which themselves carry across as `torch.from_numpy`).
 """
 
 from __future__ import annotations
@@ -57,11 +59,13 @@ def _find_adam_state(opt_state):
 def adam_state(opt_state, names: Optional[Sequence[str]] = None) -> Dict[str, object]:
     """optax Adam state -> `ClippedAdam` state dict `{"count": int, "mu":
     [tensor], "nu": [tensor]}`, one tensor per parameter `names` lists
-    (default: MCPG's policy logits)."""
+    (default: MCPG's policy logits, or the one array the params are)."""
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) found in the optimizer state")
-    if names is None:
+    if names is None and not hasattr(adam.mu, "items"):  # the params are one array
+        mu, nu = [torch.from_numpy(np.array(adam.mu, np.float32))], [torch.from_numpy(np.array(adam.nu, np.float32))]
+    elif names is None:
         mu, nu = [policy_state_dict(adam.mu)["logits"]], [policy_state_dict(adam.nu)["logits"]]
     else:
         fm, fn = flax_state_dict(adam.mu), flax_state_dict(adam.nu)

@@ -7,7 +7,7 @@ Everything here is numpy; tensors are made where the graph is used.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +31,11 @@ class Graph:
     def total_weight(self) -> float:
         return float(self.weights.sum())
 
+    @property
+    def density(self) -> float:
+        n = self.num_nodes
+        return 0.0 if n < 2 else 2.0 * self.num_edges / (n * (n - 1))
+
     @staticmethod
     def from_edge_list(num_nodes: int, edge_list: EdgeList, name: str = "") -> "Graph":
         """Build from (n0, n1, w) triples; a repeated edge keeps its last weight."""
@@ -50,6 +55,9 @@ class Graph:
         if edges.min() < 0 or edges.max() >= num_nodes:
             raise ValueError("edge endpoint out of range")
         return Graph(num_nodes, edges, weights, name)
+
+    def to_edge_list(self) -> List[Tuple[int, int, float]]:
+        return [(int(a), int(b), float(w)) for (a, b), w in zip(self.edges, self.weights)]
 
     def adjacency_dense(self, dtype=np.float32) -> np.ndarray:
         """Symmetric dense adjacency [n, n]; A[i, j] = w(i, j), 0 if no edge."""
@@ -105,3 +113,20 @@ class Graph:
         deg = self.weighted_degrees()
         order = np.argsort(-deg if descending else deg, kind="stable")
         return order.astype(np.int32)
+
+    def greedy_coloring(self) -> Tuple[np.ndarray, int]:
+        """Greedy node coloring, largest weighted degree first: each node
+        takes the least color none of its colored neighbours has. Nodes of
+        one color share no edge, so a sweep may update a class at once; the
+        classes fix the colored sweep's update order. Returns (color [n]
+        int32, num_colors)."""
+        order = self.degree_sorted_nodes(descending=True)
+        nbrs, _, deg = self.padded_neighbors()
+        color = np.full(self.num_nodes, -1, np.int32)
+        for v in order:
+            used = {int(c) for c in color[nbrs[v, : deg[v]]] if c >= 0}
+            c = 0
+            while c in used:
+                c += 1
+            color[v] = c
+        return color, int(color.max(initial=-1)) + 1

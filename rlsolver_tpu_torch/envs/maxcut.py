@@ -13,7 +13,8 @@ copy of the table in shared memory) on sparse {0, +-1}-weight graphs whose
 table fits a block's shared memory; else K8a (one warp a chain over each
 row's non-zero bit-plane words) where rows are dense, or K8b (K5's walk over
 {j, w} lists in device memory). Otherwise
-(no `packed_sweep`, or weights that are not integers or |w| >= 2^15) it runs
+(no `packed_sweep`, or weights `weight_fault` refuses: not integers,
+|w| >= 2^15, or no edges) it runs
 the f32 sweep with rank-1 gain updates, as the JAX package does: on the card
 the kernel K10 (`ops/kernels/sweep_kernel.py`), which walks each accepted
 flip's neighbour list (`F32AdjLists`, built once with the env), on the CPU
@@ -32,6 +33,7 @@ from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops import cut as cut_ops
 from rlsolver_tpu_torch.ops.kernels.engine import FlipSweepEngine
 from rlsolver_tpu_torch.ops.kernels.sweep_kernel import F32AdjLists, sweep_1flip_f32
+from rlsolver_tpu_torch.ops.kernels.weighted_sweep import weight_fault
 from rlsolver_tpu_torch.ops.reductions import update_xs_by_vs
 
 
@@ -46,11 +48,8 @@ class MaxcutEnv:
         self.mode = mode
         self.cg = cut_ops.CutGraph.build(graph, self.device, with_dense=mode != "sparse")
         self.flip_engine: Optional[FlipSweepEngine] = None
-        if packed_sweep:
-            try:
-                self.flip_engine = FlipSweepEngine.build(graph, self.device)
-            except ValueError:
-                pass  # non-integer weights: the f32 sweep below, as in the JAX package
+        if packed_sweep and weight_fault(graph.weights) is None:  # else the f32 sweep, as in the JAX package
+            self.flip_engine = FlipSweepEngine.build(graph, self.device)
         self.f32_lists: Optional[F32AdjLists] = None  # K10's lists, for the f32 sweep
         if self.flip_engine is None and self.cg.adj is not None:
             self.f32_lists = F32AdjLists.build(self.cg.adj)

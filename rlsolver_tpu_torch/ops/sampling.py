@@ -6,8 +6,16 @@
     round and accepts with min(1, (1-q)/q), until C * max_transfer_time
     accepts in total or round_cap_factor * max_transfer_time rounds. This is
     the default (non `--fast`) sampler; `--fast` uses the packed kernels.
+  * metropolis_bitflip_scan — the same proposals for a fixed number of
+    rounds, no accept budget: `algos/mcpg_multi.py`'s `sampler="scan"`;
+  * gumbel_topk — ISCO's no-replacement proposal: the top k of logits plus
+    Gumbel noise (`methods/util.py:498-555` in RLSolver);
+  * mh_accept — the Metropolis-Hastings accept mask u < exp(log_alpha);
   * sub_set_sampling — L2A's uncertainty-guided resampling of the top-k
     least certain bits.
+
+Every drawing function takes its draws from `gen` or, where the caller
+passes them, injected, so that the tests can feed it JAX's draws.
 """
 
 from __future__ import annotations
@@ -21,6 +29,26 @@ def bernoulli_logp(probs: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """Sum over the node axis of log P(bits | probs). [.., N] -> [..]."""
     p = torch.where(bits.bool(), probs, 1.0 - probs)
     return torch.sum(torch.log(p), dim=-1)
+
+
+def gumbel_topk(gen: Optional[torch.Generator], logits: torch.Tensor, k: int,
+                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Indices [.., k] of a size-k no-replacement sample ~ softmax(logits)
+    [.., N]: the top k of logits + Gumbel(0, 1) noise, drawn from `gen`
+    unless `gumbel` (shaped like logits) gives it."""
+    if gumbel is None:
+        u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(logits.dtype).tiny)))
+    return torch.topk(logits + gumbel, k, dim=-1).indices
+
+
+def mh_accept(gen: Optional[torch.Generator], log_alpha: torch.Tensor,
+              u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Metropolis accept mask log(u) < log_alpha, bool shaped like
+    log_alpha; the uniforms u come from `gen` unless given."""
+    if u is None:
+        u = torch.rand(log_alpha.shape, generator=gen, device=log_alpha.device)
+    return torch.log(u) < log_alpha
 
 
 class ChainResult(NamedTuple):
@@ -54,6 +82,35 @@ def metropolis_bitflip_chain(
         count += int(accept.sum())
         t += 1
     return ChainResult(samples, count, t)
+
+
+def metropolis_bitflip_scan(
+    gen: Optional[torch.Generator],
+    probs: torch.Tensor,
+    samples: torch.Tensor,
+    num_rounds: int,
+    nodes: Optional[torch.Tensor] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`num_rounds` rounds of `metropolis_bitflip_chain`'s proposals on bool
+    [C, N] chains, with no accept budget. Round r proposes nodes[r] [C] and
+    accepts where u[r] < (1 - q) / q, the JAX package's f32 expression (K11
+    tests u * q < 1 - q, which can differ on a rounding boundary). The
+    draws (nodes int [R, C], u f32 [R, C]) come from `gen` unless given."""
+    num_chains, num_nodes = samples.shape
+    dev = samples.device
+    if nodes is None:
+        nodes = torch.randint(0, num_nodes, (num_rounds, num_chains), generator=gen, device=dev)
+        u = torch.rand(num_rounds, num_chains, generator=gen, device=dev)
+    samples = samples.clone()
+    rows = torch.arange(num_chains, device=dev)
+    for r in range(num_rounds):
+        node = nodes[r].long()
+        p_base = probs[node]
+        cur = samples[rows, node]
+        q = torch.where(cur, p_base, 1.0 - p_base)
+        samples[rows, node] = cur ^ (u[r] < (1.0 - q) / q)
+    return samples
 
 
 def sub_set_sampling(

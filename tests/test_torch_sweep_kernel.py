@@ -97,3 +97,28 @@ def test_k10_wrapper_needs_dense_adjacency():
     xs = torch.zeros(2, tg.num_nodes, dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="dense adjacency"):
         env.sweep_1flip(xs, env.obj(xs))
+
+
+def test_packed_sweep_env_picks_by_weight_fault(monkeypatch):
+    """`MaxcutEnv(packed_sweep=True)` builds the packed 1-flip engine exactly
+    where `weight_fault` finds none, takes K10's f32 sweep elsewhere, and
+    lets any other error of the engine's build through."""
+    from rlsolver_tpu_torch.envs import maxcut as env_mod
+
+    unit = _graphs("BA_48_ID0", "unit")[1]
+    frac = _graphs("BA_48_ID0", "random")[1]
+    env = MaxcutEnv(unit, "cpu", packed_sweep=True)
+    assert env.flip_engine is not None and env.f32_lists is None
+    env = MaxcutEnv(frac, "cpu", packed_sweep=True)
+    assert env.flip_engine is None and env.f32_lists is not None
+    xs = torch.rand(4, frac.num_nodes, generator=torch.Generator().manual_seed(0)) < 0.5
+    out, out_vs = env.sweep_1flip(xs, env.obj(xs))
+    assert float(out_vs[0]) == pytest.approx(obj_maxcut(out[0].numpy().astype(np.int64), frac), rel=1e-6)
+
+    def broken_build(graph, device=None):
+        raise ValueError("a table could not be built")
+
+    monkeypatch.setattr(env_mod.FlipSweepEngine, "build", staticmethod(broken_build))
+    with pytest.raises(ValueError, match="table could not be built"):
+        MaxcutEnv(unit, "cpu", packed_sweep=True)
+    assert MaxcutEnv(frac, "cpu", packed_sweep=True).flip_engine is None
