@@ -76,9 +76,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                device time by kernel of one rollout step and one PPO update;
      l2a_dist — distribution-wise L2A at the BA_1000 cell of DIST_TABLE's
                L2A column (256 sims x 4 repeats, top_k 100, seq_len 8, embed
-               32, 2 sweeps; 60 iterations of fresh BA graphs), then
-               `evaluate_l2a_packed` (512 sims x 16 repeats, 8 sweeps, 256
-               rounds) on BA_1000_ID0 and ID1, at full depth; the
+               32, 2 sweeps; training cut from 60 to 20 iterations of fresh
+               BA graphs), then `evaluate_l2a_packed` (512 sims x 16 repeats,
+               8 sweeps, 256 rounds) on BA_1000_ID0 and ID1; the
                plain sweep versions are made to raise for the run, K4 and
                the 1-flip kernel the rule picks must launch and no other
                sweep, every best cut must equal its host re-score, and the
@@ -86,7 +86,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                (results_quality/dist_table.csv); then the device time by
                kernel of one training iteration and one eval round;
      mcpg_multi — `mcpg_multi.solve_mcpg(sampler="fused")` at 256 chains x
-               32 repeats = 8192 samples a round, depth cut to 3 rounds, on
+               32 repeats = 8192 samples a round, depth cut to 2 rounds, on
                maxcut_edge, the +-1 and the binary QUBO (`maxcut_to_qubo`)
                and the r-Cheeger cut of G22-like, a uniform random 3-SAT of
                SATLIB's uf250-1065 shape, MIMO detection at 400 x 400 and
@@ -98,12 +98,42 @@ Phases (each prints its seconds; any failure exits non-zero):
                one MaxSAT round (`run_mcpg_multi`);
      mcpg_batch — `solve_maxcut_mcpg_batched` with DIST_TABLE's MCPG protocol
                (256 x 32 chains, 8 sweeps, 6 epochs of 8 rounds) at full
-               depth on BA_100_ID0..9 and on BA_1000_ID0..9, each family in
-               one call: best cuts equal to their host re-scores, printed
+               depth on BA_100_ID0..9 and, cut to 2 epochs, on
+               BA_1000_ID0..9, each family in one call: best cuts equal to
+               their host re-scores, printed
                beside the JAX run's (results_quality/dist_table.csv); the
                device time of one BA_1000 round; then one round of MCPG's
                colored sweep mode on G22-like beside one of the sequential
                mode, their best cuts within 2% (`run_mcpg_batch`);
+     eco     — the committed ECO-DQN network (results_quality/eco_params_BA.pkl,
+               loaded by `convert.load_flax_pickle` without JAX) in bf16 at
+               scripts/eco_distribution.py's protocol (50 envs at N <= 500,
+               else 32; basin reward 1/N, stagnation punishment 0.01), one
+               greedy restart of `evaluate_scan` on BA_100_ID0..9 and
+               BA_1000_ID0..9: every best cut equal to the host re-score of
+               its best spins, each size's mean at least the JAX run's mean
+               less 1% (280.4, 2882.9), the cuts beside the JAX run's, the
+               seconds per rollout step and per instance, and the device time
+               of the first 100 steps of a BA_1000 rollout (`run_eco`);
+     s2v     — S2V-DQN at scripts/quality_table.py:228-284's protocol on BA_100
+               at full depth (`train_scan` of 6144 loop steps, 32 envs, the
+               irreversible S2V env), then one greedy rollout on each of
+               BA_100_ID0..9: cuts equal to their host re-scores, mean above
+               the RandomWalk column's 234.8, printed beside the JAX run's
+               (within 2% expected, not enforced) (`run_s2v`);
+     jumanji — `train_spin_ppo` at scripts/quality_table.py:171-227's protocol
+               on BA_100 at full depth (128 envs x 200 steps, 100 iterations),
+               then `make_greedy_evaluator` at 64 envs on BA_100_ID0..9, with
+               the s2v phase's checks (`run_jumanji`);
+     pattern1 — bench.py:38-268's `pattern1_peco` on the port (BA_800_ID0,
+               MPNN(64, 3), env counts 512-4096 through `find_best_num_sims`,
+               the env-only twin, the host CPU twin, DQN train steps/s; then
+               bf16 over the f32 winner x1, x2, x4), one JSON line with
+               bench.py's key names, the device time of one f32 block, and a
+               DQN `train_runner` whose mid-way `torch.save` checkpoint must
+               restore bit for bit (`run_pattern1`); no kernel of the port
+               lies on these four phases' path, and their launches are
+               counted and printed;
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
@@ -190,9 +220,10 @@ FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_level
 SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
           "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
 # Distribution-wise L2A at the BA_1000 cell of DIST_TABLE's L2A column, as
-# scripts/quality_table.py:349-371 runs it, at full depth: the training
-# config, then the packed evaluator's budget
-DIST_TRAIN = dict(num_nodes=1000, num_sims=256, num_repeats=4, top_k=100, seq_len=8, num_iters=60, embed_dim=32,
+# scripts/quality_table.py:349-371 runs it (the training cut from 60 to 20
+# iterations to leave the script's time limit room for the Pattern I
+# phases): the training config, then the packed evaluator's budget
+DIST_TRAIN = dict(num_nodes=1000, num_sims=256, num_repeats=4, top_k=100, seq_len=8, num_iters=20, embed_dim=32,
                   pretrain_steps=100, ls_sweeps=2, num_validation=0)
 DIST_EVAL = dict(num_rounds=256, num_sims=512, num_repeats=16, num_sweeps=8)
 DIST_INSTANCES = ("BA_1000_ID0", "BA_1000_ID1")
@@ -337,17 +368,20 @@ def profile_device(label: str, fn, top: int = 12) -> None:
         print(f"    {ms:9.2f} ms {100 * ms / wall_ms:5.1f}%  x{count:<5d} {key[:90]}")
 
 
-def jax_dist_cuts(dist: str = "BA", n: int = 1000):
-    """The JAX package's best cut per instance id in the L2A column of
-    results_quality/dist_table.csv: the campaign's own run (the first row of
-    each id; later rows are extra attempts)."""
+def jax_alg_runs(alg: str, n: int, dist: str = "BA"):
+    """The JAX package's runs of `alg` on dist_n in
+    results_quality/dist_table.csv, in file order: each run a list of its
+    ten cuts by instance id (a run is a block of rows for ids 0..9)."""
     import csv
-    out = {}
+    runs, cur = [], {}
     with open(os.path.join(REPO, "results_quality", "dist_table.csv")) as f:
         for r in csv.DictReader(f):
-            if r["dist"] == dist and r["n"] == str(n) and r["alg"] == "l2a":
-                out.setdefault(int(r["id"]), float(r["obj"]))
-    return out
+            if r["dist"] == dist and r["n"] == str(n) and r["alg"] == alg:
+                cur[int(r["id"])] = float(r["obj"])
+                if len(cur) == 10:
+                    runs.append([cur[i] for i in range(10)])
+                    cur = {}
+    return runs
 
 
 def run_l2a_dist(dev, errs: dict) -> dict:
@@ -369,7 +403,8 @@ def run_l2a_dist(dev, errs: dict) -> dict:
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
     cfg = l2d.L2ADistConfig(graph_type=GraphType.BA, **DIST_TRAIN)
-    print(f"  L2ADistConfig {DIST_TRAIN}, then evaluate_l2a_packed {DIST_EVAL}: full depth, no cut", flush=True)
+    print(f"  L2ADistConfig {DIST_TRAIN}, then evaluate_l2a_packed {DIST_EVAL}: training cut from 60 to "
+          f"{cfg.num_iters} iterations", flush=True)
     l2 = engine.l2_bytes(dev)
     graphs = [graph_from_name(name) for name in DIST_INSTANCES]
     sweep_plan, flip_plan = engine.plan_sweep(graphs[0], l2), engine.plan_1flip(graphs[0], l2)
@@ -416,7 +451,7 @@ def run_l2a_dist(dev, errs: dict) -> dict:
           f"{DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates; seconds per round: {spread(per_round)}")
     print(f"  max_memory_allocated: training {train_peak / 2**30:.2f} GiB, eval {eval_peak / 2**30:.2f} GiB, each "
           f"with the {base / 2**30:.2f} GiB that earlier phases hold; launches {counts}")
-    jax_cuts = jax_dist_cuts()
+    jax_cuts = dict(enumerate(jax_alg_runs("l2a", 1000)[0]))  # the campaign's own run
     lo, hi = min(jax_cuts.values()), max(jax_cuts.values())
     for name, g, v, x in zip(DIST_INSTANCES, graphs, vals, best):
         host = obj_maxcut(x.astype("int64"), g)
@@ -502,10 +537,11 @@ def run_l2a_dist(dev, errs: dict) -> dict:
 
 
 MULTI_CHAINS, MULTI_REPEATS = 256, 32  # mcpg_multi at full width: 8192 samples a round
-MULTI_ROUNDS = 3  # depth cut from MultiMCPGConfig's 64 rounds
+MULTI_ROUNDS = 2  # depth cut from MultiMCPGConfig's 64 rounds
 MULTI_PLAIN = 256  # of the 8192 chains, those K3's plain version checks
 # DIST_TABLE's MCPG protocol, as scripts/quality_table.py:159-165 runs it
 BATCH_CFG = dict(total_mcmc_num=256, repeat_times=32, num_ls=8, max_epoch_num=6, reset_epoch_num=64)
+BATCH_EPOCHS_1000 = 2  # BA_1000's depth cut from 6 epochs, to leave the script's time limit room
 
 
 def uniform_3sat(num_vars: int = 250, num_clauses: int = 1065, seed: int = 250):
@@ -518,19 +554,6 @@ def uniform_3sat(num_vars: int = 250, num_clauses: int = 1065, seed: int = 250):
         vs = rng.choice(num_vars, size=3, replace=False) + 1
         clauses.append([int(v) * int(s) for v, s in zip(vs, rng.choice((-1, 1), size=3))])
     return clauses
-
-
-def jax_mcpg_cuts(n: int):
-    """The JAX package's MCPG cut per BA_n instance id in
-    results_quality/dist_table.csv (the campaign's own run: the first row
-    of each id)."""
-    import csv
-    out = {}
-    with open(os.path.join(REPO, "results_quality", "dist_table.csv")) as f:
-        for r in csv.DictReader(f):
-            if r["dist"] == "BA" and r["n"] == str(n) and r["alg"] == "mcpg":
-                out.setdefault(int(r["id"]), float(r["obj"]))
-    return out
 
 
 def run_mcpg_multi(dev, errs: dict) -> dict:
@@ -669,11 +692,13 @@ def run_mcpg_batch(dev) -> dict:
     from rlsolver_tpu_torch.ops.kernels import build
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
-    cfg = MCPGConfig(**BATCH_CFG, seed=0)
-    print(f"  MCPGConfig {BATCH_CFG}: {cfg.max_epoch_num} epochs of "
-          f"{cfg.reset_epoch_num // cfg.sample_epoch_num} rounds, full depth", flush=True)
+    full = MCPGConfig(**BATCH_CFG, seed=0)
+    print(f"  MCPGConfig {BATCH_CFG}: {full.max_epoch_num} epochs of "
+          f"{full.reset_epoch_num // full.sample_epoch_num} rounds, full depth on BA_100; BA_1000 cut to "
+          f"{BATCH_EPOCHS_1000} epochs", flush=True)
     build.reset_counts()
     for n in (100, 1000):
+        cfg = full if n == 100 else dataclasses.replace(full, max_epoch_num=BATCH_EPOCHS_1000)
         graphs = [graph_from_name(f"BA_{n}_ID{i}") for i in range(10)]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -681,7 +706,7 @@ def run_mcpg_batch(dev) -> dict:
         t0, secs = time.time(), []
         x, v, history = mb.solve_maxcut_mcpg_batched(graphs, cfg, device=dev, timings=secs)
         wall = time.time() - t0
-        jax_cuts = jax_mcpg_cuts(n)
+        jax_cuts = dict(enumerate(jax_alg_runs("mcpg", n)[0]))  # the campaign's own run
         host = [obj_maxcut(x[i].astype(np.int64), gr) for i, gr in enumerate(graphs)]
         print(f"  BA_{n}_ID0..9: {wall:.2f} s in all; seconds per round: first {secs[0]:.4f}, then min "
               f"{min(secs[1:]):.4f} median {np.median(secs[1:]):.4f} max {max(secs[1:]):.4f}; max_memory_allocated "
@@ -733,6 +758,388 @@ def run_mcpg_batch(dev) -> dict:
             raise AssertionError(f"colored sweep mode: best cut {v} is more than 2% off the sequential mode's "
                                  f"{seq_cut}")
     return counts
+
+
+# Pattern I: ECO-DQN inference, S2V-DQN and Jumanji PPO at DIST_TABLE's
+# protocols on BA_100 (and ECO on BA_1000), and bench.py's pattern1 datum
+ECO_PKL = os.path.join(REPO, "results_quality", "eco_params_BA.pkl")
+ECO_LIMITS = {100: 280.4, 1000: 2882.9}  # each size's mean: at least the JAX run's mean less 1%
+ECO_PROFILE_STEPS = 100
+RANDOM_WALK_BA100 = 234.8  # DIST_TABLE's RandomWalk column, BA_100
+P1_NODES, P1_BLOCK, P1_BLOCKS = 800, 32, 8  # bench.py's pattern1_peco: BA_800_ID0, blocks of 32 steps
+P1_CANDIDATES = (512, 1024, 2048, 4096)
+P1_FEATURES, P1_LAYERS, P1_OBS = 64, 3, 7
+
+
+def phase_memory(label: str, base: int) -> None:
+    torch.cuda.synchronize()
+    print(f"  {label}: max_memory_allocated {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB that earlier phases hold; {smi_line()}", flush=True)
+
+
+def check_cuts(label: str, cuts, host, jax_runs, least: float = None, above: float = None, expect_pct: float = 0.0):
+    """Prints the cuts beside the JAX runs' and fails unless every cut
+    equals its host re-score and the mean is at least `least` (or above
+    `above`); a mean more than expect_pct% below the last JAX run's is
+    printed as a miss, not a failure."""
+    mean = float(np.mean(cuts))
+    print(f"  {label}: cuts {cuts} (mean {mean:.2f})", flush=True)
+    for run in jax_runs:
+        print(f"    JAX run {run} (mean {np.mean(run):.2f}); port - JAX {[c - j for c, j in zip(cuts, run)]}")
+    if host != cuts:
+        raise AssertionError(f"{label}: best cuts {cuts} != host re-scores {host}")
+    if least is not None and not mean >= least:
+        raise AssertionError(f"{label}: mean cut {mean:.2f} below the required {least}")
+    if above is not None and not mean > above:
+        raise AssertionError(f"{label}: mean cut {mean:.2f} not above {above}")
+    if expect_pct:
+        ref = float(np.mean(jax_runs[-1]))
+        status = "within" if mean >= ref * (1 - expect_pct / 100) else "MISSED: more than"
+        print(f"  {label}: mean {mean:.2f} is {status} {expect_pct}% of the JAX run's {ref:.2f} "
+              f"(expected, not enforced)", flush=True)
+
+
+def host_cut(state, g):
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+    b = int(state.best_score.argmax())
+    return obj_maxcut((state.best_spins[b] > 0).cpu().numpy().astype(np.int64), g)
+
+
+def run_eco(dev, sizes=(100, 1000), ids=10) -> None:
+    """The committed ECO-DQN network (results_quality/eco_params_BA.pkl,
+    loaded without JAX) in bf16 at scripts/eco_distribution.py's protocol:
+    one greedy restart per instance on BA_100_ID0..9 and BA_1000_ID0..9."""
+    from rlsolver_tpu_torch import convert
+    from rlsolver_tpu_torch.algos.dqn import DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+
+    params = {k: v.to(dev) for k, v in convert.mpnn_state_dict(convert.load_flax_pickle(ECO_PKL)).items()}
+    dcfg = DQNConfig(features=64, n_layers=3, dtype=torch.bfloat16)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for n in sizes:
+        cfg = SpinSystemConfig(num_envs=50 if n <= 500 else 32, basin_reward=1.0 / n, stag_punishment=0.01)
+        agent = DQNAgent(SpinSystemEnv(n, cfg), dcfg, device=dev)
+        cuts, host, secs = [], [], []
+        for i in range(ids):
+            g = graph_from_name(f"BA_{n}_ID{i}")
+            t0 = time.time()
+            cuts.append(agent.evaluate_scan(params, g))
+            secs.append(time.time() - t0)
+            host.append(host_cut(agent.last_eval_state, g))
+        steps = agent.env.max_steps
+        print(f"  ECO-DQN BA_{n} ({cfg.num_envs} envs x {steps} steps, bf16): seconds per instance first "
+              f"{secs[0]:.3f}, then median {np.median(secs[1:]):.3f} (min {min(secs[1:]):.3f}, max "
+              f"{max(secs[1:]):.3f}); seconds per rollout step {np.median(secs[1:]) / steps:.6f}", flush=True)
+        check_cuts(f"eco BA_{n}", cuts, host, jax_alg_runs("eco", n)[-1:], least=ECO_LIMITS[n])
+    phase_memory("eco", base)
+    # the profiler's trace of all 2000 steps would hold about 0.7 M events,
+    # minutes to gather: the first ECO_PROFILE_STEPS steps of a BA_1000
+    # rollout (the same widths; a step's work does not change along the rollout)
+    g = graph_from_name(f"BA_{sizes[-1]}_ID0")
+    window = DQNAgent(SpinSystemEnv(g.num_nodes, dataclasses.replace(agent.env.config, max_steps=ECO_PROFILE_STEPS)),
+                      dcfg, device=dev)
+    window.evaluate_scan(params, g)
+    profile_device(f"the first {ECO_PROFILE_STEPS} steps of an ECO-DQN rollout on {g.name} "
+                   f"({agent.env.config.num_envs} envs, bf16)", lambda: window.evaluate_scan(params, g))
+
+
+def run_s2v(dev, steps: int = 6144) -> None:
+    """S2V-DQN at scripts/quality_table.py:228-284's protocol on BA_100:
+    train_scan on generate_graph(BA, 100, seed=92000), then one greedy
+    rollout per instance of BA_100_ID0..9."""
+    from rlsolver_tpu_torch.algos.dqn import DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.config import GraphType
+    from rlsolver_tpu_torch.core.generate import generate_graph, graph_from_name
+    from rlsolver_tpu_torch.envs.spin_system import (NUM_OBSERVABLES_S2V, RewardSignal, SpinSystemConfig,
+                                                     SpinSystemEnv)
+
+    n = 100
+    cfg = SpinSystemConfig(num_envs=32, max_steps=n, reversible_spins=False, num_observables=NUM_OBSERVABLES_S2V,
+                           reward_signal=RewardSignal.DENSE, norm_rewards=False)
+    dcfg = DQNConfig(features=32, n_layers=2, buffer_capacity=2**12, eps_decay_steps=steps // 2)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    agent = DQNAgent(SpinSystemEnv(n, cfg), dcfg, device=dev)
+    t0 = time.time()
+    params, best, state = agent.train_scan(generate_graph(GraphType.BA, n, seed=92000), steps)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    print(f"  S2V-DQN training: {state.step_idx} loop steps x {cfg.num_envs} envs, {state.train_steps} SGD steps in "
+          f"{train_s:.2f} s: {train_s / state.step_idx:.6f} s per loop step, {state.train_steps / train_s:.1f} SGD "
+          f"steps/s; best training cut {best}", flush=True)
+    cuts, host = [], []
+    t0 = time.time()
+    for i in range(10):
+        g = graph_from_name(f"BA_{n}_ID{i}")
+        cuts.append(agent.evaluate_scan(params, g))
+        host.append(host_cut(agent.last_eval_state, g))
+    print(f"  S2V-DQN eval: {(time.time() - t0) / 10:.3f} s per instance", flush=True)
+    check_cuts("s2v BA_100", cuts, host, jax_alg_runs("s2v", n), above=RANDOM_WALK_BA100, expect_pct=2.0)
+    phase_memory("s2v", base)
+
+
+def run_jumanji(dev, iters: int = 100) -> None:
+    """Jumanji PPO at scripts/quality_table.py:171-227's protocol on BA_100:
+    train_spin_ppo on generate_graph(BA, 100, seed=91000), 128 envs, 200
+    steps, 100 iterations, then make_greedy_evaluator at 64 envs on
+    BA_100_ID0..9."""
+    from rlsolver_tpu_torch.algos.jumanji_ppo import MPNNActorCritic, SpinPPOConfig, make_greedy_evaluator, train_spin_ppo
+    from rlsolver_tpu_torch.config import GraphType
+    from rlsolver_tpu_torch.core.generate import generate_graph, graph_from_name
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+
+    n = 100
+    train_env = SpinSystemEnv(n, SpinSystemConfig(num_envs=128, max_steps=min(2 * n, 256), basin_reward=1.0 / n,
+                                                  stag_punishment=0.01))
+    eval_env = SpinSystemEnv(n, SpinSystemConfig(num_envs=64, basin_reward=1.0 / n, stag_punishment=0.01))
+    cfg = SpinPPOConfig(num_iters=iters, features=32, n_layers=2, num_minibatches=1)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params, hist = train_spin_ppo(train_env, generate_graph(GraphType.BA, n, seed=91000), cfg, device=dev)
+    train_s = time.time() - t0
+    print(f"  Jumanji PPO training: {cfg.num_iters} iterations of {train_env.config.num_envs} envs x "
+          f"{train_env.max_steps} steps and {cfg.update_epochs} epochs in {train_s:.2f} s "
+          f"({train_s / cfg.num_iters:.4f} s per iteration); training best cut by iteration "
+          f"{hist['best_cut'][:3]}..{hist['best_cut'][-3:]}, loss {hist['loss'][0]:.4f}..{hist['loss'][-1]:.4f}",
+          flush=True)
+    evaluate = make_greedy_evaluator(eval_env, MPNNActorCritic(eval_env.config.num_observables, cfg.features,
+                                                               cfg.n_layers, device=dev))
+    cuts, host = [], []
+    t0 = time.time()
+    for i in range(10):
+        g = graph_from_name(f"BA_{n}_ID{i}")
+        cuts.append(evaluate(params, g))
+        host.append(host_cut(evaluate.last_state, g))
+    print(f"  Jumanji eval: {(time.time() - t0) / 10:.3f} s per instance", flush=True)
+    check_cuts("jumanji BA_100", cuts, host, jax_alg_runs("jumanji", n), above=RANDOM_WALK_BA100, expect_pct=2.0)
+    phase_memory("jumanji", base)
+
+
+def pattern1_peco(dev, dtype=torch.float32, candidates=P1_CANDIDATES, cpu_twin=True) -> dict:
+    """bench.py:38-268 on the port: the PECO hot loop (SpinSystemEnv step,
+    MPNN Q forward, 5% epsilon-greedy acting) on BA_800_ID0 at the env
+    count `find_best_num_sims` picks from `candidates` (blocks of 32
+    steps), the env-only twin and the MPNN's share of a step, the analytic
+    MPNN FLOPs per env step, the bf16 argmax agreement with f32, a
+    single-env numpy twin on the host CPU, and double-DQN train steps/s at
+    batch 64 over 50 steps. Random weights from seed 0."""
+    from rlsolver_tpu_torch.algos.dqn import DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+    from rlsolver_tpu_torch.eval.autotune import find_best_num_sims
+    from rlsolver_tpu_torch.models.mpnn import MPNN
+
+    n, f, layers, obs_dim = P1_NODES, P1_FEATURES, P1_LAYERS, P1_OBS
+    graph = graph_from_name(f"BA_{n}_ID0")
+    model = MPNN(obs_dim, f, layers, dtype=dtype, seed=0, device=dev)
+    # the adjacency aggregations 2 N^2 (obs + L f) dominate; the dense layers add 2 N (...)
+    flops = 2 * n * n * (obs_dim + layers * f) + 2 * n * (
+        obs_dim * f + obs_dim * (f - 1) + f * f + layers * 2 * (2 * f) * f + f * f + 2 * f)
+
+    def build(num_envs, with_net=True):
+        env = SpinSystemEnv(n, SpinSystemConfig(num_envs=num_envs, basin_reward=1.0 / n))
+        pe = env.params_from_graph(graph, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state, obs = env.reset(pe, generator=gen)
+        carry = {"state": state, "obs": obs, "env": env, "pe": pe}
+
+        @torch.no_grad()
+        def block():
+            st, ob = carry["state"], carry["obs"]
+            rews = []
+            for _ in range(P1_BLOCK):
+                rand_a = torch.randint(0, n, (num_envs,), generator=gen, device=dev)
+                if with_net:
+                    greedy = model(ob, pe.adj).argmax(dim=-1)
+                    explore = torch.rand(num_envs, generator=gen, device=dev) < 0.05
+                    action = torch.where(explore, rand_a, greedy)
+                else:  # env-only twin: the step's cost without the network
+                    action = rand_a
+                st, ob, rew, _ = env.step(pe, st, action)
+                rews.append(rew.mean())
+            carry["state"], carry["obs"] = st, ob
+            return torch.stack(rews).mean()
+
+        carry["block"] = block
+        return carry
+
+    def time_block(block, blocks=P1_BLOCKS):
+        block()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            r = block()
+        float(r)
+        return blocks * P1_BLOCK / (time.perf_counter() - t0)  # steps/s of the whole batch
+
+    built = {}
+
+    def run(num_envs):
+        if num_envs not in built:
+            built[num_envs] = build(num_envs)
+        return built[num_envs]["block"]()
+
+    best, results = find_best_num_sims(run, candidates, reps=4)
+    sweep = {num: round(tp * P1_BLOCK, 1) for num, tp in results}
+    built.clear()
+    if not any(tp > 0 for _, tp in results):
+        raise RuntimeError(f"pattern1 autotune: every env-count candidate failed ({sweep})")
+    torch.cuda.empty_cache()
+    full = build(best)
+    steps_per_sec = time_block(full["block"]) * best
+    env_only_rate = time_block(build(best, with_net=False)["block"]) * best
+    out = {
+        "steps_per_sec": steps_per_sec,
+        "num_envs": best,
+        "sweep": sweep,
+        "mpnn_share": max(0.0, 1.0 - steps_per_sec / env_only_rate),
+        "flops_per_env_step": flops,
+        "achieved_mpnn_flops": steps_per_sec * flops,
+        "full": full,
+        "model": model,
+    }
+    obs, pe = full["obs"], full["pe"]
+    if dtype != torch.float32:  # the same params in f32, the same observations
+        model_f32 = MPNN(obs_dim, f, layers, device=dev)
+        model_f32.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            out["greedy_action_match_vs_f32"] = float(
+                (model(obs, pe.adj).argmax(-1) == model_f32(obs, pe.adj).argmax(-1)).float().mean())
+
+    if cpu_twin:
+        # one env's MPNN forward shapes and rank-1 gain update in numpy on
+        # the host (random weights; this measures throughput, not values)
+        adj_np = pe.adj.cpu().numpy()
+        rng = np.random.default_rng(0)
+        w_in = rng.standard_normal((obs_dim, f), np.float32)
+        w_msg = [rng.standard_normal((2 * f, f), np.float32) for _ in range(layers)]
+        w_upd = [rng.standard_normal((2 * f, f), np.float32) for _ in range(layers)]
+        w_out = rng.standard_normal((f, 1), np.float32)
+        spins = np.ones(n, np.float32)
+        gains = full["state"].gains[0].cpu().numpy()
+        obs1 = obs[0].cpu().numpy().copy()
+        max_r = float(pe.max_local_reward)
+        cpu_steps = 30
+        t0 = time.perf_counter()
+        for _ in range(cpu_steps):
+            h = np.maximum(obs1 @ w_in, 0.0)
+            e = h
+            for li in range(layers):
+                m = np.maximum(np.concatenate([adj_np @ h, e], axis=-1) @ w_msg[li], 0.0)
+                h = np.maximum(np.concatenate([h, m], axis=-1) @ w_upd[li], 0.0)
+            a = int(np.argmax((h @ w_out)[:, 0]))
+            gains = gains - 2.0 * (spins[a] * spins) * adj_np[a]
+            spins[a] *= -1.0
+            obs1[:, 1] = gains / max_r
+        out["cpu_steps_per_sec"] = cpu_steps / (time.perf_counter() - t0)
+
+    # double-DQN train steps/s at the reference batch of 64
+    agent = DQNAgent(full["env"], DQNConfig(batch_size=64, dtype=dtype), device=dev)
+    qp = agent.init_params(0)
+    bsz = 64
+    batch = (obs[:bsz], torch.zeros(bsz, dtype=torch.int64, device=dev), torch.zeros(bsz, device=dev), obs[:bsz],
+             torch.zeros(bsz, dtype=torch.bool, device=dev))
+    qp2, opt2, loss = agent.train_step(qp, qp, agent.new_opt_state(qp), batch, pe.adj)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        qp2, opt2, loss = agent.train_step(qp2, qp, opt2, batch, pe.adj)
+    float(loss)
+    out["train_steps_per_sec"] = 50 / (time.perf_counter() - t0)
+    return out
+
+
+def same_state(a, b) -> tuple:
+    """(leaves, equal leaves) of two training states, bit for bit: tensors
+    by value, dtype and device, generators by state, the rest by ==."""
+    if isinstance(a, torch.Generator):
+        return 1, int(torch.equal(a.get_state(), b.get_state()) and a.device == b.device)
+    if isinstance(a, torch.Tensor):
+        return 1, int(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b))
+    if isinstance(a, dict):
+        pairs = [same_state(a[k], b[k]) for k in a] if a.keys() == b.keys() else [(1, 0)]
+    elif isinstance(a, (list, tuple)):
+        pairs = [same_state(x, y) for x, y in zip(a, b)] if len(a) == len(b) else [(1, 0)]
+    else:
+        return 1, int(a == b)
+    return sum(p[0] for p in pairs), sum(p[1] for p in pairs)
+
+
+def run_pattern1(dev) -> None:
+    """bench.py's pattern1_peco on the port in f32 and in bf16 over the f32
+    winner x1, x2 and x4 (one JSON line with bench.py's key names), the
+    device time of one f32 block, then a DQN train_runner with a
+    checkpoint mid-way whose restore must give the saved state bit for bit."""
+    from rlsolver_tpu_torch.algos.dqn import DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+    from rlsolver_tpu_torch.train.checkpoint import restore_checkpoint
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p1 = pattern1_peco(dev)
+    print(f"  f32: env counts {p1['sweep']} env-steps/s, winner {p1['num_envs']}: {p1['steps_per_sec']:.1f} "
+          f"env-steps/s, MPNN share {p1['mpnn_share']:.3f}, {p1['achieved_mpnn_flops'] / 1e12:.2f} TFLOP/s of MPNN "
+          f"work", flush=True)
+    full = p1.pop("full")
+    model = p1.pop("model")
+    profile_device(f"one pattern1 block (f32, {P1_BLOCK} steps x {p1['num_envs']} envs, BA_{P1_NODES}_ID0)", full["block"])
+    del full, model
+    torch.cuda.empty_cache()
+    b = p1["num_envs"]
+    p1_bf16 = pattern1_peco(dev, dtype=torch.bfloat16, candidates=(b, 2 * b, 4 * b), cpu_twin=False)
+    del p1_bf16["full"], p1_bf16["model"]
+    torch.cuda.empty_cache()
+    smi = smi_line()
+    print(json.dumps({
+        "pattern1_env_steps_per_sec": round(p1["steps_per_sec"], 1),
+        "pattern1_num_envs_autotuned": p1["num_envs"],
+        "pattern1_autotune_sweep": p1["sweep"],
+        "pattern1_mpnn_forward_share": round(p1["mpnn_share"], 3),
+        "pattern1_cpu_single_env_steps_per_sec": round(p1["cpu_steps_per_sec"], 1),
+        "pattern1_target_vs_cpu_single": 100.0,
+        "pattern1_vs_cpu_single": round(p1["steps_per_sec"] / p1["cpu_steps_per_sec"], 1),
+        "pattern1_vs_cpu_256core": round(p1["steps_per_sec"] / (256 * p1["cpu_steps_per_sec"]), 2),
+        "dqn_train_steps_per_sec": round(p1["train_steps_per_sec"], 1),
+        "pattern1_mpnn_flops_per_env_step": p1["flops_per_env_step"],
+        "pattern1_achieved_tflops_f32": round(p1["achieved_mpnn_flops"] / 1e12, 2),
+        "pattern1_bf16_env_steps_per_sec": round(p1_bf16["steps_per_sec"], 1),
+        "pattern1_bf16_num_envs_autotuned": p1_bf16["num_envs"],
+        "pattern1_bf16_autotune_sweep": p1_bf16["sweep"],
+        "pattern1_bf16_speedup_vs_f32": round(p1_bf16["steps_per_sec"] / p1["steps_per_sec"], 2),
+        "pattern1_bf16_achieved_tflops": round(p1_bf16["achieved_mpnn_flops"] / 1e12, 2),
+        "pattern1_bf16_greedy_action_match_vs_f32": round(p1_bf16["greedy_action_match_vs_f32"], 4),
+        "dqn_train_steps_per_sec_bf16": round(p1_bf16["train_steps_per_sec"], 1),
+        "device": smi,
+    }), flush=True)
+    phase_memory("pattern1", base)
+
+    # TrainLoop with torch.save checkpoints: a mid-way checkpoint restores bit for bit
+    n = 100
+    g = graph_from_name(f"BA_{n}_ID0")
+    env = SpinSystemEnv(n, SpinSystemConfig(num_envs=32, basin_reward=1.0 / n, stag_punishment=0.01))
+    dcfg = DQNConfig(features=32, n_layers=2, buffer_capacity=2**12, eps_decay_steps=300)
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        t0 = time.time()
+        _, mid = DQNAgent(env, dcfg, device=dev).train_runner(g, 150, run_dir=os.path.join(d, "run"),
+                                                               checkpoint_every=150, log_every=50)
+        restored = restore_checkpoint(os.path.join(d, "run", "checkpoints", "step_150"), like=mid)
+        leaves, equal = same_state(restored, mid)
+        print(f"  train_runner on BA_{n}_ID0 (32 envs): 150 steps, {mid.train_steps} SGD steps in "
+              f"{time.time() - t0:.2f} s; the step_150 checkpoint restores {equal} of {leaves} leaves bit for bit "
+              f"(params, Adam state, replay ring, env state, the CUDA generator's state)", flush=True)
+        if equal != leaves:
+            raise AssertionError(f"checkpoint restore: {leaves - equal} of {leaves} leaves differ")
+        _, resumed = DQNAgent(env, dcfg, device=dev).train_runner(g, 300, run_dir=os.path.join(d, "run"),
+                                                                   checkpoint_every=150, resume=True, log_every=50)
+        _, straight = DQNAgent(env, dcfg, device=dev).train_runner(g, 300, run_dir=os.path.join(d, "straight"),
+                                                                    checkpoint_every=150, log_every=50)
+        leaves, equal = same_state(resumed, straight)
+        print(f"  resumed at 150 and run to 300 against the straight 300-step run: {equal} of {leaves} leaves "
+              f"equal bit for bit ({resumed.train_steps} SGD steps)", flush=True)
 
 
 def main() -> int:
@@ -1275,6 +1682,16 @@ def main() -> int:
     batch_counts = run_mcpg_batch(dev)
     phase("mcpg_batch", t0)
 
+    # Pattern I: ECO-DQN, S2V-DQN, Jumanji PPO, bench.py's pattern1 datum -------
+    build.reset_counts()
+    for name, run in (("eco", run_eco), ("s2v", run_s2v), ("jumanji", run_jumanji), ("pattern1", run_pattern1)):
+        t0 = time.time()
+        run(dev)
+        phase(name, t0)
+    pattern_i_counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"  launches in eco, s2v, jumanji and pattern1: {pattern_i_counts} (no kernel of the port lies on "
+          f"the Pattern I path: the MPNN's GEMMs and the env's elementwise ops are torch)", flush=True)
+
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
@@ -1541,6 +1958,7 @@ def main() -> int:
         if k["name"] == "mh_sample_fused":
             k["mcpg_multi_shapes"] = k3_shapes
         k["mcpg_batch_launches"] = batch_counts[k["name"]]
+        k["pattern_i_launches"] = pattern_i_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

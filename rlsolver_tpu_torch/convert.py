@@ -14,15 +14,25 @@ The JAX state arrives as numpy arrays (the caller converts with
     with mu, nu shaped like the params — becomes the state of the port's
     `ClippedAdam`, over the module's parameters in `named_parameters` order,
     or over the one raw array where the params are one (mcpg_batch's
-    logits [G, N], which themselves carry across as `torch.from_numpy`).
+    logits [G, N], which themselves carry across as `torch.from_numpy`);
+  * a pickled flax tree of `jax.Array`s, such as the trained ECO-DQN
+    networks in `results_quality/eco_params_*.pkl`, loads without JAX
+    (`load_flax_pickle`), and the MPNN's tree becomes its state dict
+    (`mpnn_state_dict`).
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+# the one global of JAX that a pickled jax.Array names, and the numpy
+# globals that rebuild its host copy
+_JAX_ARRAY = ("jax._src.array", "_reconstruct_array")
+_NUMPY_NAMES = {"_reconstruct", "ndarray", "dtype", "scalar"}
 
 
 def policy_state_dict(params) -> Dict[str, torch.Tensor]:
@@ -71,3 +81,38 @@ def adam_state(opt_state, names: Optional[Sequence[str]] = None) -> Dict[str, ob
         fm, fn = flax_state_dict(adam.mu), flax_state_dict(adam.nu)
         mu, nu = [fm[k] for k in names], [fn[k] for k in names]
     return {"count": int(np.asarray(adam.count)), "mu": mu, "nu": nu}
+
+
+def _reconstruct_array(fun, args, arr_state, aval_state):
+    """What a pickled jax.Array calls on load: here it builds the numpy
+    array (`fun(*args)` then its pickled state) and returns it."""
+    arr = fun(*args)
+    arr.__setstate__(arr_state)
+    return arr
+
+
+class _FlaxUnpickler(pickle.Unpickler):
+    """Loads numpy arrays and `jax.Array`s (as numpy arrays) in plain
+    containers, and refuses every other global."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == _JAX_ARRAY:
+            return _reconstruct_array
+        if (module == "numpy" or module.startswith("numpy.")) and name in _NUMPY_NAMES:
+            if module.startswith("numpy._core") and int(np.__version__.split(".")[0]) < 2:
+                module = "numpy.core" + module[len("numpy._core"):]
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refusing to load the global {module}.{name}")
+
+
+def load_flax_pickle(path: str):
+    """A pickled tree of `jax.Array`s (e.g. `results_quality/eco_params_BA.pkl`)
+    as the same tree of numpy arrays, without importing JAX."""
+    with open(path, "rb") as f:
+        return _FlaxUnpickler(f).load()
+
+
+def mpnn_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The MPNN's flax tree `{"params": {"node_init": {"kernel": ...}, ...}}`
+    -> the port's `MPNN` state dict (f32; the MPNN's `dtype` casts at use)."""
+    return flax_state_dict(params)

@@ -24,3 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def synchronize() -> None:
+    """Wait for the work queued on the card, if CUDA is in use (nothing to
+    wait for on the CPU): a host clock or a host read of results needs it."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
