@@ -18,7 +18,10 @@ The JAX state arrives as numpy arrays (the caller converts with
   * a pickled flax tree of `jax.Array`s, such as the trained ECO-DQN
     networks in `results_quality/eco_params_*.pkl`, loads without JAX
     (`load_flax_pickle`), and the MPNN's tree becomes its state dict
-    (`mpnn_state_dict`).
+    (`mpnn_state_dict`);
+  * a flax `GCN` tree, or PI-GNN's `{"gcn": tree, "embed", "skip"}`,
+    becomes the port's GCN state dict or PI-GNN parameter dict
+    (`gcn_state_dict`).
 """
 
 from __future__ import annotations
@@ -116,3 +119,16 @@ def mpnn_state_dict(params) -> Dict[str, torch.Tensor]:
     """The MPNN's flax tree `{"params": {"node_init": {"kernel": ...}, ...}}`
     -> the port's `MPNN` state dict (f32; the MPNN's `dtype` casts at use)."""
     return flax_state_dict(params)
+
+
+def gcn_state_dict(params) -> Dict[str, torch.Tensor]:
+    """A flax GCN tree `{"params": {"gcn0": ..., "out": ...}}` -> the port's
+    `GCN` state dict; PI-GNN's `{"gcn": tree, "embed": [N, E], "skip": [E]}`
+    (leaves of any leading shape, e.g. a cell's [G, ...]) -> the
+    `algos.pignn` parameter dict {"gcn.gcn0.kernel", ..., "embed", "skip"}."""
+    if "gcn" not in params:
+        return flax_state_dict(params)
+    out = {"gcn." + k: v for k, v in flax_state_dict(params["gcn"]).items()}
+    for k in ("embed", "skip"):
+        out[k] = torch.from_numpy(np.array(params[k], np.float32))
+    return out

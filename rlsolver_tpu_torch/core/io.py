@@ -1,13 +1,18 @@
 """Gset/syn graph files (counterpart of `rlsolver_tpu/core/io.py`).
 
 Format: first non-comment line "N M", then M lines "n0 n1 w" with 1-indexed
-nodes; lines containing "//" are comments.
+nodes; lines containing "//" are comments. Also the knapsack and set-cover
+instance containers that the batched objectives read (`ops/objectives.py`);
+their file readers are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Sequence, Tuple
+
+import numpy as np
 
 from rlsolver_tpu_torch.core.graph import Graph
 
@@ -40,3 +45,33 @@ def list_graph_files(directory: str, prefixes: Sequence[str]) -> List[str]:
         if fn.endswith(".txt") and any(fn.startswith(p) for p in prefixes):
             out.append(os.path.join(directory, fn))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class KnapsackInstance:
+    instance_id: int
+    capacity: float
+    weights: np.ndarray  # [n] float32
+    profits: np.ndarray  # [n] float32
+
+    @property
+    def num_items(self) -> int:
+        return int(self.weights.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class SetCoverInstance:
+    num_items: int
+    subsets: Tuple[Tuple[int, ...], ...]  # 1-indexed item ids as in the files
+
+    @property
+    def num_sets(self) -> int:
+        return len(self.subsets)
+
+    def membership_matrix(self) -> np.ndarray:
+        """[num_sets, num_items] bool; item ids mapped to 0-indexed."""
+        m = np.zeros((self.num_sets, self.num_items), bool)
+        for si, items in enumerate(self.subsets):
+            for it in items:
+                m[si, it - 1] = True
+        return m

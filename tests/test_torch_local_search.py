@@ -90,9 +90,12 @@ def test_cli_runs_on_cpu(alg, fast, capsys, monkeypatch):
 
 
 def test_cli_lists_the_ported_algs():
-    assert PORTED_ALGS == ("mcpg", "local_search", "l2a")
+    assert PORTED_ALGS == ("mcpg", "local_search", "l2a", "greedy", "sa", "ga", "random_walk", "sdp", "bls", "isco",
+                           "pignn")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_main(["--alg", "isco", "--graphs", "BA_100_ID0", "--device", "cpu"])
+        cli_main(["--alg", "vqe", "--graphs", "BA_100_ID0", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="--problem mis: isco"):
+        cli_main(["--problem", "mis", "--alg", "greedy", "--graphs", "BA_100_ID0", "--device", "cpu"])
 
 
 ENTRY_POINTS = {

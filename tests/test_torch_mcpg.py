@@ -139,7 +139,7 @@ def test_cli_runs_on_cpu():
 
 def test_cli_rejects_algs_not_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_main(["--alg", "greedy", "--graphs", "BA_100_ID0", "--device", "cpu"])
+        cli_main(["--alg", "milp", "--graphs", "BA_100_ID0", "--device", "cpu"])
 
 
 def test_entry_points_need_a_card_unless_cpu():

@@ -222,26 +222,43 @@ def test_loop_steps_with_injected_draws(num_graphs):
 
 
 # ------------------------------------------------------- the ECO network
-def test_eco_checkpoint_greedy_cut_matches_jax():
-    """The committed ECO-DQN network (BA), f32, greedy on BA_100_ID0 from
-    JAX's reset spins: the same best cut, equal to its host re-score."""
-    n, envs = 100, 16
+def eco_greedy_cut(name, envs, bf16):
+    """The committed ECO-DQN network (BA), greedy from JAX's reset spins
+    (`PRNGKey(0)`) in both packages: (JAX's cut, the port's), the port's
+    equal to its host re-score."""
+    n = graph_from_name(name).num_nodes
     kw = dict(num_envs=envs, basin_reward=1 / n, stag_punishment=0.01)
-    cfg_kw = dict(features=64, n_layers=3)
     with open(ECO_PKL, "rb") as f:
         j_params = pickle.load(f)
-    ja = jdqn.DQNAgent(jss.SpinSystemEnv(n, jss.SpinSystemConfig(**kw)), jdqn.DQNConfig(**cfg_kw))
-    ta = tdqn.DQNAgent(tss.SpinSystemEnv(n, tss.SpinSystemConfig(**kw)), tdqn.DQNConfig(**cfg_kw), device="cpu")
+    ja = jdqn.DQNAgent(jss.SpinSystemEnv(n, jss.SpinSystemConfig(**kw)),
+                       jdqn.DQNConfig(features=64, n_layers=3, dtype=jnp.bfloat16 if bf16 else jnp.float32))
+    ta = tdqn.DQNAgent(tss.SpinSystemEnv(n, tss.SpinSystemConfig(**kw)),
+                       tdqn.DQNConfig(features=64, n_layers=3, dtype=torch.bfloat16 if bf16 else torch.float32),
+                       device="cpu")
     key = jax.random.PRNGKey(0)
-    j_cut = ja.evaluate_scan(j_params, j_graph_from_name("BA_100_ID0"), key=key)
+    j_cut = ja.evaluate_scan(j_params, j_graph_from_name(name), key=key)
     spins = jnp.where(jax.random.bernoulli(jax.random.fold_in(key, 0), 0.5, (envs, n)), 1.0, -1.0)
     params = convert.mpnn_state_dict(convert.load_flax_pickle(ECO_PKL))
-    g = graph_from_name("BA_100_ID0")
+    g = graph_from_name(name)
     t_cut = ta.evaluate_scan(params, g, spins=[np.asarray(spins)])
-    assert t_cut == j_cut
     st = ta.last_eval_state
     b = int(st.best_score.argmax())
     assert obj_maxcut((st.best_spins[b] > 0).numpy().astype(int), g) == t_cut
+    return j_cut, t_cut
+
+
+def test_eco_checkpoint_greedy_cut_matches_jax():
+    """f32 at 16 envs on BA_100_ID0: the same best cut as JAX's."""
+    j_cut, t_cut = eco_greedy_cut("BA_100_ID0", 16, bf16=False)
+    assert t_cut == j_cut
+
+
+def test_eco_checkpoint_greedy_cut_matches_jax_bf16_id9():
+    """bf16 at scripts/eco_distribution.py's 50 envs x 200 steps on
+    BA_100_ID9: JAX's own CPU cut, 279 (dist_table.csv's 280 is the TPU
+    run's)."""
+    j_cut, t_cut = eco_greedy_cut("BA_100_ID9", 50, bf16=True)
+    assert t_cut == j_cut == 279
 
 
 def test_load_flax_pickle_without_jax():

@@ -114,6 +114,19 @@ def test_maxsat_cnf_and_wcnf_roundtrip(tmp_path, sat_instance):
 
 
 # ------------------------------------------------------------------ cheeger
+def test_wcnf_line_without_literals_adds_no_clause(tmp_path):
+    """A weighted line with no literal ("7 0") adds neither a clause nor a
+    weight, so each clause keeps its own weight. Port only: the JAX parser
+    (rlsolver_tpu/problems/maxsat.py:86-93) appends the weight without the
+    clause and returns [5, 7, 9] for these two clauses."""
+    path = tmp_path / "t.wcnf"
+    path.write_text("p wcnf 3 3 100\n5 1 2 0\n7 0\n9 -1 3 0\n")
+    inst = tms.MaxSatInstance.from_cnf(str(path))
+    assert inst.num_clauses == 2 and inst.num_vars == 3 and inst.hard_weight == 100.0
+    np.testing.assert_array_equal(np.asarray(inst.weights), [5.0, 9.0])
+    assert (np.abs(inst.clause_signs).sum(axis=1) == [2, 2]).all()
+
+
 @pytest.mark.parametrize("normalized", [False, True])
 def test_cheeger_matches_jax(normalized):
     name = "BA_40_ID1"
