@@ -72,8 +72,33 @@ Phases (each prints its seconds; any failure exits non-zero):
                L2AConfig (256 sims x 8 repeats, top_k 16, 2 searchers, 4
                multi-flip iterations, embed 64, 4 heads, 2 encoder layers,
                mlp 256), depth cut as printed; every local search ends in K10,
-               and the plain f32 loop is made to raise for the run; then the
-               device time by kernel of one rollout step and one PPO update;
+               and the plain f32 loop is made to raise for the run;
+     runners — the solvers on the training runtime (`run_runners`):
+               `solve_maxcut_mcpg_runner` with gset_22's GSET_PRESETS widths
+               (2048 x 224 chains), fused/packed, on G22-like, 4 rounds with a
+               checkpoint every 2, straight and killed after round 2 then
+               resumed; `solve_maxcut_l2a_runner` at the l2a phase's config,
+               2 iterations with a checkpoint each, then resumed from the
+               straight run's iteration-1 checkpoint; each resumed state equal
+               to the straight one leaf by leaf, bit for bit, each best cut
+               equal to its host re-score, K3, K4 and K5 (MCPG) and K10 (L2A)
+               launched, no other sweep, their plain versions made to raise;
+               the checkpoint's bytes and the seconds per round beside the
+               main phase's; then the device time by kernel of one rollout
+               step and one PPO update of the L2A runner's steps;
+     problems — the CLI's problem axis (`run_problems`): greedy MIS, MVC and
+               partitioning and the four colorings on BA_1000_ID0..2 (each
+               re-scored, each coloring proper); knapsack on
+               generate_knapsack(1000, 0): DP on the card equal to branch and
+               bound, FPTAS at least 0.9 DP, SA and greedy at most DP; set
+               cover on an instance of OR-Library's scp4 shape (200 rows, 1000
+               columns, 2%): anneal_set_cover at least as good as greedy, and
+               the device time of a 100-step window; anneal_partition beside
+               Karmarkar-Karp on 1000 integers; then `cli_main` in this
+               process for every new --problem/--alg pair with --write, the
+               comparison CSV of `eval.statistics` over the results (MILP
+               stopped at 2 s for partitioning and set cover, cut from 5 s),
+               and `--alg milp --milp-time-limit 5` on maxcut;
      l2a_dist — distribution-wise L2A at the BA_1000 cell of DIST_TABLE's
                L2A column (256 sims x 4 repeats, top_k 100, seq_len 8, embed
                32, 2 sweeps; training cut from 60 to 20 iterations of fresh
@@ -407,6 +432,24 @@ def jax_alg_runs(alg: str, n: int, dist: str = "BA"):
     return runs
 
 
+def plains_raise(pairs):
+    """Makes each (module, name) plain kernel version raise where it is
+    called (a run whose kernels must all launch on the card); returns the
+    originals for `restore`."""
+    def plain_on_the_card(*args, **kwargs):
+        raise AssertionError(f"a plain kernel version ran on the card: one of {[a for _, a in pairs]}")
+
+    saved = [getattr(m, a) for m, a in pairs]
+    for m, a in pairs:
+        setattr(m, a, plain_on_the_card)
+    return saved
+
+
+def restore(pairs, saved) -> None:
+    for (m, a), fn in zip(pairs, saved):
+        setattr(m, a, fn)
+
+
 def run_l2a_dist(dev, errs: dict) -> dict:
     """Distribution-wise L2A at BA_1000's widths: trains the policy across
     fresh BA graphs (the 1-flip kernel of the rule in every update), then
@@ -436,14 +479,9 @@ def run_l2a_dist(dev, errs: dict) -> dict:
         if sweep_plan.weighted else "mcpg_sweep"
     print(f"  {DIST_INSTANCES[0]}: sweep plan {sweep_plan}, 1-flip plan {flip_plan} (the training graphs' family)")
 
-    def plain_sweep_on_the_card(*args, **kwargs):
-        raise AssertionError("a plain sweep version ran on the card")
-
     plains = [(sk, "sweep_1flip_f32_plain"), (sw, "_sweep_1flip_plain"), (wsw, "_sweep_1flip_plain"),
               (sw, "_sweep_plain"), (wsw, "_wsweep_plain")]
-    saved = [getattr(m, a) for m, a in plains]
-    for m, a in plains:
-        setattr(m, a, plain_sweep_on_the_card)
+    saved = plains_raise(plains)
     build.reset_counts()
     train_t, eval_t = {}, {}
     base = torch.cuda.memory_allocated()  # what earlier phases still hold
@@ -457,8 +495,7 @@ def run_l2a_dist(dev, errs: dict) -> dict:
         torch.cuda.synchronize()
         eval_peak = torch.cuda.max_memory_allocated()
     finally:
-        for (m, a), fn in zip(plains, saved):
-            setattr(m, a, fn)
+        restore(plains, saved)
     counts = {k.name: k.launches for k in build.KERNELS}
     iters, blocks = train_t["iteration"], eval_t["block"]
     per_round = [t / 8 for t in blocks]  # evaluate_l2a_packed's blocks of 8 rounds
@@ -1422,6 +1459,331 @@ def run_baselines(dev, errs: dict) -> dict:
     return path_launches
 
 
+# The runners on the training runtime: MCPG at gset_22's GSET_PRESETS widths
+# (2048 x 224 chains) with K3/K4/K5, rounds cut to RUNNER_ROUNDS (a checkpoint
+# every RUNNER_CKPT), and L2A at L2AConfig's widths with the l2a phase's depth
+# cut (K10), 2 iterations with a checkpoint each
+RUNNER_ROUNDS, RUNNER_CKPT = 4, 2
+RUNNER_PLAIN_SWEEP = 8192  # of the runner's chains, those K4's plain version checks (its Python loop is slow)
+L2A_CUT = dict(pretrain_steps=20, num_iters=2, seq_len=4, seed=0)
+
+
+def _metrics_rows(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_runners(dev, g, main_seconds, errs: dict) -> dict:
+    """`solve_maxcut_mcpg_runner` and `solve_maxcut_l2a_runner` on G22-like
+    through TrainLoop, each straight and killed-and-resumed, the resumed
+    state held leaf by leaf against the straight one (bit for bit), every
+    best cut against its host re-score, the launches (MCPG: K3, K4, K5 and
+    no other sweep; L2A: K10 and no packed sweep), with the plain versions
+    of those kernels made to raise; prints the checkpoint's bytes and the
+    seconds per round beside the main phase's (`main_seconds`). Then holds
+    K3 and K4 against their plain versions at the MCPG runner's shape, on
+    its last round's restart rows and policy (into `errs`), and prints the
+    device time of one rollout step and one PPO update of the L2A runner's
+    steps. Returns the launches of both runners."""
+    import shutil
+    from rlsolver_tpu_torch.algos import l2a, mcpg
+    from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, mh_sampler as mh
+    from rlsolver_tpu_torch.ops.kernels import sweep_kernel as sk
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    cfg = dataclasses.replace(mcpg.GSET_PRESETS["gset_22"], sampler="fused", sweep_mode="packed", seed=0)
+    chains = cfg.total_mcmc_num * cfg.repeat_times
+    print(f"  MCPG runner: gset_22 preset {cfg.total_mcmc_num} x {cfg.repeat_times} = {chains} chains, "
+          f"fused/packed, {RUNNER_ROUNDS} of {cfg.max_epoch_num * cfg.reset_epoch_num // cfg.sample_epoch_num} "
+          f"rounds, checkpoint every {RUNNER_CKPT}", flush=True)
+    plains = [(mh, "mh_fused_plain"), (sw, "_sweep_plain"), (sw, "_sweep_1flip_plain"),
+              (sk, "sweep_1flip_f32_plain")]
+    with tempfile.TemporaryDirectory(dir=REPO) as root:
+        saved = plains_raise(plains)
+        build.reset_counts()
+        try:
+            t0 = time.time()
+            bx, bv, straight = mcpg.solve_maxcut_mcpg_runner(g, cfg, os.path.join(root, "straight"),
+                                                             total_rounds=RUNNER_ROUNDS,
+                                                             checkpoint_every=RUNNER_CKPT, device=dev)
+            torch.cuda.synchronize()
+            t_straight = time.time() - t0
+            t0 = time.time()
+            mcpg.solve_maxcut_mcpg_runner(g, cfg, os.path.join(root, "part"), total_rounds=RUNNER_CKPT,
+                                          checkpoint_every=RUNNER_CKPT, device=dev)
+            _, _, resumed = mcpg.solve_maxcut_mcpg_runner(g, cfg, os.path.join(root, "part"),
+                                                          total_rounds=RUNNER_ROUNDS, checkpoint_every=RUNNER_CKPT,
+                                                          resume=True, device=dev)
+            torch.cuda.synchronize()
+            t_resume = time.time() - t0
+        finally:
+            restore(plains, saved)
+        mcpg_counts = {k.name: k.launches for k in build.KERNELS}
+        rows = _metrics_rows(os.path.join(root, "straight"))
+        ckpt = os.path.join(root, "straight", "checkpoints", f"step_{RUNNER_ROUNDS}", "state.pt")
+        ckpt_bytes = os.path.getsize(ckpt)
+        leaves, equal = same_state(resumed, straight)
+        host = obj_maxcut(bx.astype("int64"), g)
+        per_round = [b["time"] - a["time"] for a, b in zip(rows, rows[1:])]
+        print(f"  straight {t_straight:.2f} s, killed at round {RUNNER_CKPT} and resumed {t_resume:.2f} s; "
+              f"resumed state equal to the straight one on {equal} of {leaves} leaves", flush=True)
+        print(f"  best cut {bv} host re-score {host}; best_cut by round {[r['best_cut'] for r in rows]}; seconds per "
+              f"round {per_round} (main phase, 2^20 chains: {main_seconds}); samples/s "
+              f"{[chains / t for t in per_round]}; checkpoint {ckpt_bytes} bytes", flush=True)
+        if equal != leaves:
+            raise AssertionError(f"MCPG runner: {leaves - equal} of {leaves} leaves differ after the resume")
+        if host != bv:
+            raise AssertionError(f"MCPG runner: best cut {bv} != host re-score {host}")
+        require_launches("MCPG runner", mcpg_counts, ("mh_sample_fused", "mcpg_sweep", "sweep_1flip"),
+                         [k for k in SWEEPS if k not in ("mcpg_sweep", "sweep_1flip")])
+
+        # K3 and K4 at the runner's shape: the next round's restart rows (R
+        # copies of the C chains) under the last round's policy, K3's MH
+        # rounds as the runner's (`mcpg._build_steps`), then K4 on K3's output
+        # with the runner's engine and sweeps (the plain K4 on the first
+        # RUNNER_PLAIN_SWEEP chains; the noise is keyed by seed and chain)
+        n = g.num_nodes
+        policy, _ = mcpg.new_policy(n, cfg, dev)
+        with torch.no_grad():
+            policy.logits.copy_(straight.logits)
+            probs = policy()
+        rows = straight.start_xs.repeat(cfg.repeat_times, 1)
+        rounds = max(cfg.num_ls, 2 * (cfg.change_times or max(1, n // 10)))
+        out = mh.mh_sample_fused(4321, probs, rows, rounds)
+        plain = codec.unpack_bits(mh.mh_fused_plain(4321, mh.fused_thresholds(probs), codec.pack_bits(rows), n,
+                                                    rounds), n)
+        require_equal(f"K3 mh_sample_fused at the MCPG runner's shape ({rows.shape[0]} chains, {rounds} rounds)",
+                      out, plain, errs, "mh_sample_fused")
+        eng = engine.FusedSweepEngine.build(g, dev)
+        if eng.weighted:
+            raise AssertionError("the MCPG runner's engine on G22-like is expected to be K4's, not the weighted one")
+        swept = eng.sweep(8765, out, cfg.num_ls)[:RUNNER_PLAIN_SWEEP]
+        plain = codec.unpack_bits(sw._sweep_plain(eng.tables, codec.pack_bits(out[:RUNNER_PLAIN_SWEEP].contiguous()),
+                                                  n, cfg.num_ls, 0.25, None, 8765), n)
+        require_equal(f"K4 mcpg_sweep_fused at the MCPG runner's shape (first {RUNNER_PLAIN_SWEEP} of "
+                      f"{out.shape[0]} chains, {cfg.num_ls} sweeps)", swept, plain, errs, "mcpg_sweep")
+        del rows, out, plain, swept
+
+        # L2A through the runner: 2 iterations, then a resume from iteration 1's checkpoint
+        l2a_cfg = dataclasses.replace(l2a.L2AConfig(), **L2A_CUT)
+        saved = plains_raise(plains)
+        build.reset_counts()
+        times = {}
+        try:
+            full_dir, res_dir = os.path.join(root, "l2a"), os.path.join(root, "l2a_resume")
+            t0 = time.time()
+            bx, bv, full = l2a.solve_maxcut_l2a_runner(g, l2a_cfg, full_dir, checkpoint_every=1, device=dev,
+                                                       timings=times)
+            torch.cuda.synchronize()
+            t_full = time.time() - t0
+            shutil.copytree(os.path.join(full_dir, "checkpoints", "step_1"),
+                            os.path.join(res_dir, "checkpoints", "step_1"))
+            t0 = time.time()
+            _, _, res = l2a.solve_maxcut_l2a_runner(g, l2a_cfg, res_dir, checkpoint_every=1, resume=True,
+                                                    device=dev)
+            torch.cuda.synchronize()
+            t_res = time.time() - t0
+        finally:
+            restore(plains, saved)
+        l2a_counts = {k.name: k.launches for k in build.KERNELS}
+        rows = _metrics_rows(full_dir)
+        leaves, equal = same_state(res, full)
+        host = obj_maxcut(bx.astype("int64"), g)
+        print(f"  L2A runner: {l2a_cfg.num_sims} x {l2a_cfg.num_repeats} candidates, {L2A_CUT}; straight {t_full:.2f} "
+              f"s (pretrain {times['pretrain'][0]:.3f} s, rollout steps {times['rollout']}, PPO updates "
+              f"{times['ppo']}); resumed from iteration 1 in {t_res:.2f} s; {equal} of {leaves} leaves equal; "
+              f"metrics {[(r['best_cut'], round(r['ppo_loss'], 6)) for r in rows]}; checkpoint "
+              f"{os.path.getsize(os.path.join(full_dir, 'checkpoints', 'step_2', 'state.pt'))} bytes", flush=True)
+        if equal != leaves:
+            raise AssertionError(f"L2A runner: {leaves - equal} of {leaves} leaves differ after the resume")
+        if host != bv:
+            raise AssertionError(f"L2A runner: best cut {bv} != host re-score {host}")
+        require_launches("L2A runner", l2a_counts, ("sweep_1flip_f32",), SWEEPS)
+
+    # where one rollout step and one PPO update of the runner's steps spend
+    # their device time: the runner's setup (the same seed: the same
+    # encoder features and steps) with the resumed run's weights, Adam state
+    # and incumbents, the batch of one rollout from them
+    setup = l2a._l2a_setup(g, l2a_cfg, dev)
+    setup.net.load_state_dict(res.params)
+    setup.optimizer.load_state_dict(res.opt_state)
+    xs, vs, batch = l2a._rollout(setup.steps, res.generator, res.best_xs, res.best_vs, l2a_cfg.seq_len,
+                                 l2a._Timings(dev, None))
+    candidates = l2a_cfg.num_sims * l2a_cfg.num_repeats
+    profile_device(f"one L2A runner rollout step ({candidates} candidates)",
+                   lambda: setup.steps.rollout_step(res.generator, xs, vs))
+    profile_device(f"one L2A runner PPO update ({l2a_cfg.update_times} minibatches of {l2a_cfg.num_sims}, T = "
+                   f"{l2a_cfg.seq_len})", lambda: setup.steps.ppo_update(res.generator, batch))
+    return {k: mcpg_counts[k] + l2a_counts[k] for k in mcpg_counts}
+
+
+# HiGHS's time limits in the problems phase's CLI calls: maxcut's 5 s (its
+# bound and gap go into the result file), and 2 s where BA_100_ID0's balanced
+# partition and the scp4-like cover are not proved within the phase's budget
+# (each stops at its limit with a feasible solution, re-scored as any other)
+MILP_LIMITS = {"graph_partitioning": 2, "set_cover": 2}
+
+
+def scp4_like(seed: int = 4):
+    """A set-cover instance of OR-Library's scp4 shape (Beasley): 200 rows
+    (items), 1000 columns (sets), 2% density; every row covered by at least
+    two columns and every column covering at least one row."""
+    from rlsolver_tpu_torch.core.io import SetCoverInstance
+    rng = np.random.default_rng(seed)
+    member = rng.random((1000, 200)) < 0.02
+    for item in np.where(member.sum(0) < 2)[0]:
+        member[rng.choice(1000, 2, replace=False), item] = True
+    for s in np.where(~member.any(1))[0]:
+        member[s, rng.integers(200)] = True
+    return SetCoverInstance(200, tuple(tuple((np.where(row)[0] + 1).tolist()) for row in member))
+
+
+def run_problems(dev) -> None:
+    """The CLI's problem axis on the card's host and the card: greedy MIS,
+    MVC and partitioning and the four colorings on BA_1000_ID0..2 (each
+    re-scored, each coloring proper); knapsack on generate_knapsack(1000, 0)
+    (DP on the card equal to branch and bound, FPTAS at least 0.9 DP, SA
+    feasible and at most DP, greedy at most DP); set cover on an scp4-like
+    instance (greedy, then anneal_set_cover at least as good, a 100-step
+    window profiled); number partitioning (anneal_partition beside
+    Karmarkar-Karp); then `cli_main` in this process for every new
+    --problem/--alg pair with --write, the comparison CSV of
+    `eval.statistics` over what it wrote, and `--alg milp` on maxcut."""
+    import contextlib
+    import io as _io
+    import shutil
+    from rlsolver_tpu_torch.classical import coloring as col, greedy as gr, knapsack as kp
+    from rlsolver_tpu_torch.classical import number_partitioning as part, simulated_annealing as sa
+    from rlsolver_tpu_torch.core.generate import generate_knapsack, graph_from_name
+    from rlsolver_tpu_torch.core.io import write_graph
+    from rlsolver_tpu_torch.eval.statistics import write_comparison_csv
+    from rlsolver_tpu_torch.problems import objectives as obj
+    from rlsolver_tpu_torch.run import main as cli_main
+
+    # graph problems on DIST_TABLE's BA_1000 instances
+    rescore = {"greedy_mis": (gr.greedy_mis, obj.obj_maximum_independent_set),
+               "greedy_mvc": (gr.greedy_mvc, obj.obj_minimum_vertex_cover),
+               "greedy_partitioning": (gr.greedy_graph_partitioning, obj.obj_graph_partitioning)}
+    colorings = {"greedy": col.greedy_coloring, "welsh_powell": col.welsh_powell, "dsatur": col.dsatur,
+                 "rlf": col.recursive_largest_first}
+    for name in ("BA_1000_ID0", "BA_1000_ID1", "BA_1000_ID2"):
+        g = graph_from_name(name)
+        line = []
+        for alg, (fn, objective) in rescore.items():
+            t0 = time.time()
+            sol, val = fn(g)
+            host = objective(sol.astype(np.int64), g)
+            if host != val or not np.isfinite(val):
+                raise AssertionError(f"{alg} on {name}: {val} against host re-score {host}")
+            line.append(f"{alg} {val:g} ({time.time() - t0:.2f} s)")
+        for alg, fn in colorings.items():
+            t0 = time.time()
+            colors, k = fn(g)
+            if not col.is_proper_coloring(g, colors) or obj.obj_graph_coloring(colors, g) != -k:
+                raise AssertionError(f"coloring {alg} on {name}: improper or {k} colors mis-counted")
+            line.append(f"{alg} {k} colors ({time.time() - t0:.2f} s)")
+        print(f"  {name}: " + "; ".join(line), flush=True)
+
+    # knapsack at 1000 items
+    inst = generate_knapsack(1000, seed=0)
+    res = {}
+    for alg, fn in (("dp", lambda: kp.dp_knapsack(inst, dev)), ("branch_and_bound", lambda: kp.branch_and_bound_knapsack(inst)),
+                    ("fptas", lambda: kp.fptas_knapsack(inst)), ("greedy", lambda: kp.greedy_knapsack(inst)),
+                    ("sa", lambda: kp.sa_knapsack(inst, 0, device=dev))):
+        t0 = time.time()
+        bits, val = fn()
+        torch.cuda.synchronize()
+        res[alg] = (val, time.time() - t0)
+        if obj.obj_knapsack(bits.astype(np.int64), inst) != val:
+            raise AssertionError(f"knapsack {alg}: {val} is not its host re-score")
+    print(f"  knapsack n=1000 capacity {inst.capacity:g}: " + "; ".join(f"{a} {v:g} ({t:.2f} s)"
+                                                                      for a, (v, t) in res.items()), flush=True)
+    dp_v = res["dp"][0]
+    if not (res["branch_and_bound"][0] == dp_v and res["fptas"][0] >= 0.9 * dp_v and res["sa"][0] <= dp_v
+            and res["greedy"][0] <= dp_v):
+        raise AssertionError(f"knapsack: {res} breaks DP = B&B, FPTAS >= 0.9 DP, SA <= DP, greedy <= DP")
+
+    # set cover of scp4's shape
+    sc = scp4_like()
+    t0 = time.time()
+    _, greedy_v = gr.greedy_set_cover(sc)
+    t_greedy = time.time() - t0
+    sa_cfg = sa.SAConfig()
+    t0 = time.time()
+    bits, sa_v = sa.anneal_set_cover(sc, sa_cfg, device=dev)
+    t_sa = time.time() - t0
+    print(f"  set cover (scp4 shape: {sc.num_items} rows, {sc.num_sets} columns, "
+          f"{sum(map(len, sc.subsets)) / (sc.num_items * sc.num_sets):.4f} density): greedy {-greedy_v:g} sets "
+          f"({t_greedy:.2f} s), anneal_set_cover {-sa_v:g} sets ({sa_cfg.num_chains} chains x {sa_cfg.num_steps} "
+          f"steps, {t_sa:.2f} s, {1e3 * t_sa / sa_cfg.num_steps:.3f} ms a step)", flush=True)
+    if obj.obj_set_cover(bits.astype(np.int64), sc) != sa_v or sa_v < greedy_v:
+        raise AssertionError(f"set cover: SA {sa_v} (host {obj.obj_set_cover(bits.astype(np.int64), sc)}) "
+                             f"below greedy {greedy_v}")
+    window = dataclasses.replace(sa_cfg, num_steps=100)
+    profile_device(f"anneal_set_cover, 100 steps ({sa_cfg.num_chains} chains, {sc.num_sets} sets)",
+                   lambda: sa.anneal_set_cover(sc, window, device=dev))
+
+    # number partitioning
+    nums = np.random.default_rng(1000).integers(1, 1001, 1000)
+    t0 = time.time()
+    _, kk = part.karmarkar_karp(nums)
+    t_kk = time.time() - t0
+    t0 = time.time()
+    bits, ann = part.anneal_partition(nums, 0, device=dev)
+    t_ann = time.time() - t0
+    print(f"  number partitioning, 1000 integers in 1..1000 (sum {int(nums.sum())}): Karmarkar-Karp difference "
+          f"{kk:g} ({t_kk:.3f} s), anneal_partition {ann:g} (256 chains x 2000 steps, {t_ann:.2f} s)", flush=True)
+    if part.partition_difference(nums, bits) != ann:
+        raise AssertionError("anneal_partition's difference is not its host re-score")
+
+    # the CLI, in this process, with result files, then the comparison tables
+    pairs = [("mis", a) for a in ("greedy", "isco", "milp")] + [("mvc", a) for a in ("greedy", "milp")]
+    pairs += [("graph_partitioning", a) for a in ("greedy", "milp")]
+    pairs += [("graph_coloring", a) for a in ("greedy", "welsh_powell", "dsatur", "rlf")]
+    pairs += [("set_cover", a) for a in ("greedy", "milp")]
+    pairs += [("knapsack", a) for a in ("greedy", "dp", "branch_and_bound", "fptas", "sa", "milp")]
+    pairs += [("maxcut", "milp")]
+    with tempfile.TemporaryDirectory(dir=REPO) as root:
+        data = os.path.join(root, "data")
+        write_graph(graph_from_name("BA_100_ID0"), os.path.join(data, "BA_100_ID0.txt"))
+        os.makedirs(os.path.join(root, "instances", "data"))
+        with open(os.path.join(root, "instances", "data", "scp4like.txt"), "w") as f:
+            f.write(f"{sc.num_items} {sc.num_sets}\n" + "".join(" ".join(map(str, s)) + "\n" for s in sc.subsets))
+        kinst = generate_knapsack(100, seed=1)
+        with open(os.path.join(root, "instances", "data", "knap100.txt"), "w") as f:
+            f.write(f"0 {kinst.num_items} {int(kinst.capacity)}\n"
+                    + "".join(f"{int(w)} {int(p)}\n" for w, p in zip(kinst.weights, kinst.profits)))
+        for problem, alg in pairs:
+            instance = problem in ("set_cover", "knapsack")
+            src = os.path.join(root, "instances", "data") if instance else data
+            args = ["--problem", problem, "--alg", alg, "--data-dir", src, "--write", "--device", dev.type,
+                    "--milp-time-limit", str(MILP_LIMITS.get(problem, 5))]
+            if instance:
+                args += ["--prefixes", "scp4like" if problem == "set_cover" else "knap100"]
+            out = _io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(args)
+            print(f"  [{problem}] {out.getvalue().strip()} ({time.time() - t0:.2f} s)", flush=True)
+            if rc != 0 or out.getvalue().count("obj=") != 1:
+                raise AssertionError(f"CLI --problem {problem} --alg {alg} failed ({rc}): {out.getvalue()}")
+            # file the result under <problem>/<problem>_<alg>/, the layout eval.statistics reads
+            result_dir = os.path.join(os.path.dirname(src), "result")
+            dest = os.path.join(root, "tree", problem, f"{problem.replace('_', '-')}_{alg}")
+            os.makedirs(dest, exist_ok=True)
+            for fname in os.listdir(result_dir):
+                shutil.move(os.path.join(result_dir, fname), os.path.join(dest, fname))
+        for problem in sorted(os.listdir(os.path.join(root, "tree"))):
+            csv_path = os.path.join(root, f"{problem}.csv")
+            # every objective is maximized but a coloring's, reported as its count of colors
+            table = write_comparison_csv(os.path.join(root, "tree", problem), csv_path,
+                                         maximize=problem != "graph_coloring")
+            with open(csv_path) as f:
+                print(f"  comparison table {problem}: " + f.read().strip().replace("\n", " | "), flush=True)
+            if not table:
+                raise AssertionError(f"no comparison rows for {problem}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1435,11 +1797,9 @@ def main() -> int:
     from rlsolver_tpu_torch.core.graph import Graph
     from rlsolver_tpu_torch.device import resolve_device
     from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
-    from rlsolver_tpu_torch.models.transformer import PolicyTrsWithValue
     from rlsolver_tpu_torch.ops import cut
     from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, mh_sampler as mh
     from rlsolver_tpu_torch.ops.kernels import sweep_kernel as sk, weighted_sweep as wsw
-    from rlsolver_tpu_torch.optim import ClippedAdam
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
     dev = resolve_device("cuda")
@@ -1775,6 +2135,7 @@ def main() -> int:
     fast_counts = {k.name: k.launches for k in build.KERNELS}
     host = obj_maxcut(best_x.astype("int64"), g)
     times = [b[2] - a[2] for a, b in zip(ev.records, ev.records[1:])]
+    main_seconds = times
     print(f"  C={fast_cfg.total_mcmc_num} R={fast_cfg.repeat_times} -> {B} chains, N={n}, "
           f"num_ls={S}, {ROUNDS} MH rounds per round; cut to max_epoch_num=1, {len(times)} rounds")
     print(f"  best cut {best_v} host re-score {host} seconds/round {times} samples/s {[B / t for t in times]}")
@@ -1896,11 +2257,8 @@ def main() -> int:
           f"pretrain_steps {full_cfg.pretrain_steps}->{l2a_cfg.pretrain_steps}, num_iters {full_cfg.num_iters}->"
           f"{l2a_cfg.num_iters}, seq_len {full_cfg.seq_len}->{l2a_cfg.seq_len}")
 
-    def plain_f32_sweep_on_the_card(*args):
-        raise AssertionError("the plain f32 1-flip loop ran on the card")
-
-    plain_f32 = sk.sweep_1flip_f32_plain
-    sk.sweep_1flip_f32_plain = plain_f32_sweep_on_the_card
+    plain_f32 = [(sk, "sweep_1flip_f32_plain")]
+    saved = plains_raise(plain_f32)
     torch.cuda.reset_peak_memory_stats()
     build.reset_counts()
     l2a_times = {}
@@ -1908,7 +2266,7 @@ def main() -> int:
         best_x, best_v, ev = l2a.solve_maxcut_l2a(g, l2a_cfg, device=dev, timings=l2a_times)
         torch.cuda.synchronize()
     finally:
-        sk.sweep_1flip_f32_plain = plain_f32
+        restore(plain_f32, saved)
     l2a_counts = {k.name: k.launches for k in build.KERNELS}
     host = obj_maxcut(best_x.astype("int64"), g)
     print(f"  G22like: {l2a_cfg.num_sims} x {l2a_cfg.num_repeats} = {B_L2A} candidates per step; pretrain "
@@ -1925,29 +2283,13 @@ def main() -> int:
         raise AssertionError(f"l2a: packed sweeps launched without packed_sweep/fused_ls: {wrong}")
     phase("l2a", t0)
 
-    # where an L2A rollout step and a PPO update spend their device time
+    # the runners on TrainLoop (checkpoint and resume; l2a's profile folded in)
     t0 = time.time()
-    env_l = MaxcutEnv(g, dev)
-    gen_l = torch.Generator(device=dev)
-    gen_l.manual_seed(1)
-    _, seq_graph = l2a.pretrain_graph_encoder(g, dataclasses.replace(l2a_cfg, pretrain_steps=1), gen_l, dev)
-    net = PolicyTrsWithValue(l2a_cfg.embed_dim, l2a_cfg.num_heads, seed=1, device=dev)
-    steps_l = l2a._build_l2a_steps(env_l, net, seq_graph, l2a_cfg, ClippedAdam(net.parameters(), l2a_cfg.lr))
-    xs_l = env_l.random_xs(gen_l, l2a_cfg.num_sims)
-    vs_l = env_l.obj(xs_l)
-    states, rewards, logprobs = [xs_l], [], []
-    for _ in range(l2a_cfg.seq_len):
-        xs_l, vs_l, r, lp = steps_l.rollout_step(gen_l, xs_l, vs_l)
-        states.append(xs_l)
-        rewards.append(r)
-        logprobs.append(lp)
-    batch = l2a.RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs))
-    steps_l.ppo_update(gen_l, batch)
-    profile_device(f"one L2A rollout step ({B_L2A} candidates)", lambda: steps_l.rollout_step(gen_l, xs_l, vs_l))
-    profile_device(f"one PPO update ({l2a_cfg.update_times} minibatches of {l2a_cfg.num_sims}, T = "
-                   f"{l2a_cfg.seq_len})", lambda: steps_l.ppo_update(gen_l, batch))
-    del env_l, net, steps_l, batch, states, seq_graph
-    phase("l2a_profile", t0)
+    runner_counts = run_runners(dev, g, main_seconds, errs)
+    phase("runners", t0)
+    t0 = time.time()
+    run_problems(dev)
+    phase("problems", t0)
 
     # distribution-wise L2A at BA_1000's widths ----------------------------------
     t0 = time.time()
@@ -2254,6 +2596,7 @@ def main() -> int:
             k["mcpg_multi_shapes"] = k3_shapes
         k["mcpg_batch_launches"] = batch_counts[k["name"]]
         k["baselines_launches"] = baseline_counts[k["name"]]
+        k["runners_launches"] = runner_counts[k["name"]]
         k["pattern_i_launches"] = pattern_i_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs

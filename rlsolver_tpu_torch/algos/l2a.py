@@ -20,9 +20,13 @@ with `packed_sweep` (the CLI's `--fast`) in K5/K8a/K8b on integer weights;
 `fused_ls` runs K4, K6 or K7 through `FusedSweepEngine`. The transformer is
 plain tensor code, as XLA code in the JAX package.
 
+`solve_maxcut_l2a` and `solve_maxcut_l2a_runner` share their setup
+(`_l2a_setup`); the runner takes one iteration (`seq_len` rollout steps and
+the PPO update) as a step of `train.runner.TrainLoop`, with checkpoint and
+resume, `metrics.jsonl` and the stop sentinel.
+
 The distribution-wise variant is `algos/l2a_distribution.py`. Not ported
-here: the data-parallel `axis_name` of `_build_l2a_steps`, and
-`solve_maxcut_l2a_runner` (it needs the training loop of `train/runner.py`).
+here: the data-parallel `axis_name` of `_build_l2a_steps`.
 """
 
 from __future__ import annotations
@@ -206,6 +210,67 @@ def _build_l2a_steps(env: MaxcutEnv, net: PolicyTrsWithValue, seq_graph: torch.T
     return L2ASteps(rollout_step, ppo_update)
 
 
+class _Timings:
+    """Seconds of named sections into a dict, the device synchronised at
+    each boundary; does nothing without a dict."""
+
+    def __init__(self, dev: torch.device, out: Optional[Dict[str, List[float]]]):
+        self.dev, self.out = dev, out
+
+    def tick(self) -> float:
+        if self.out is None:
+            return 0.0
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        return time.time()
+
+    def lap(self, key: str, t0: float) -> None:
+        if self.out is not None:
+            self.out.setdefault(key, []).append(self.tick() - t0)
+
+
+class L2ASetup(NamedTuple):
+    env: MaxcutEnv
+    gen: torch.Generator
+    net: PolicyTrsWithValue
+    optimizer: ClippedAdam
+    steps: L2ASteps
+
+
+def _l2a_setup(graph: Graph, cfg: L2AConfig, dev: torch.device, timings: Optional[_Timings] = None) -> L2ASetup:
+    """What the solve and the runner share: the env (and with `fused_ls`
+    the sweep engine), the generator seeded `cfg.seed`, the pretrained
+    encoder's features, the policy net, its optimizer and the two steps.
+    The generator is drawn from by the pretraining, then for the net's
+    seed."""
+    timings = timings or _Timings(dev, None)
+    env = MaxcutEnv(graph, dev, packed_sweep=cfg.packed_sweep)
+    engine = FusedSweepEngine.build(graph, dev) if cfg.fused_ls else None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    t0 = timings.tick()
+    _, seq_graph = pretrain_graph_encoder(graph, cfg, gen, dev)
+    timings.lap("pretrain", t0)
+    net = PolicyTrsWithValue(cfg.embed_dim, cfg.num_heads, seed=_kernel_seed(gen), device=dev)
+    optimizer = ClippedAdam(net.parameters(), cfg.lr)
+    return L2ASetup(env, gen, net, optimizer, _build_l2a_steps(env, net, seq_graph, cfg, optimizer, engine))
+
+
+def _rollout(steps: L2ASteps, gen: torch.Generator, best_xs: torch.Tensor, best_vs: torch.Tensor, seq_len: int,
+             timings: _Timings):
+    """`seq_len` rollout steps from the incumbents -> (new xs, new vs, the
+    steps' RolloutBatch)."""
+    states, rewards, logprobs = [best_xs], [], []
+    for _ in range(seq_len):
+        t0 = timings.tick()
+        best_xs, best_vs, reward, logprob = steps.rollout_step(gen, best_xs, best_vs)
+        timings.lap("rollout", t0)
+        states.append(best_xs)
+        rewards.append(reward)
+        logprobs.append(logprob)
+    return best_xs, best_vs, RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs))
+
+
 def solve_maxcut_l2a(
     graph: Graph,
     cfg: L2AConfig = L2AConfig(),
@@ -223,47 +288,19 @@ def solve_maxcut_l2a(
     step ("rollout") and PPO update ("ppo"), the device synchronised at each
     boundary."""
     dev = resolve_device(device)
-
-    def tick() -> float:
-        """Host clock for `timings`, after the device's queued work."""
-        if timings is None:
-            return 0.0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.time()
-
-    def lap(key: str, t0: float) -> None:
-        if timings is not None:
-            timings.setdefault(key, []).append(tick() - t0)
-
-    env = MaxcutEnv(graph, dev, packed_sweep=cfg.packed_sweep)
-    engine = FusedSweepEngine.build(graph, dev) if cfg.fused_ls else None
+    clock = _Timings(dev, timings)
+    env, gen, _, _, steps = _l2a_setup(graph, cfg, dev, clock)
     n = graph.num_nodes
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.seed)
-    t0 = tick()
-    _, seq_graph = pretrain_graph_encoder(graph, cfg, gen, dev)
-    lap("pretrain", t0)
-    net = PolicyTrsWithValue(cfg.embed_dim, cfg.num_heads, seed=_kernel_seed(gen), device=dev)
-    optimizer = ClippedAdam(net.parameters(), cfg.lr)
-    steps = _build_l2a_steps(env, net, seq_graph, cfg, optimizer, engine)
 
     best_xs = env.random_xs(gen, cfg.num_sims)
     best_vs = env.obj(best_xs)
     evaluator = Evaluator(save_dir, n, best_xs[0].cpu().numpy(), float(best_vs[0]), True)
     start = time.time()
     for iter_i in range(cfg.num_iters):
-        states, rewards, logprobs = [best_xs], [], []
-        for _ in range(cfg.seq_len):
-            t0 = tick()
-            best_xs, best_vs, reward, logprob = steps.rollout_step(gen, best_xs, best_vs)
-            lap("rollout", t0)
-            states.append(best_xs)
-            rewards.append(reward)
-            logprobs.append(logprob)
-        t0 = tick()
-        losses = steps.ppo_update(gen, RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs)))
-        lap("ppo", t0)
+        best_xs, best_vs, batch = _rollout(steps, gen, best_xs, best_vs, cfg.seq_len, clock)
+        t0 = clock.tick()
+        losses = steps.ppo_update(gen, batch)
+        clock.lap("ppo", t0)
         evaluator.record(iter_i + 1, best_vs.cpu().numpy(), best_xs.cpu().numpy())
         if verbose:
             print(evaluator.log_line(iter_i + 1, f"ppo_loss {float(losses.mean()):.4f}"))
@@ -275,3 +312,59 @@ def solve_maxcut_l2a(
         write_graph_result(evaluator.best_v, time.time() - start, n, "dreinforce_l2a",
                            evaluator.best_x.astype(int), instance_file)
     return evaluator.best_x, evaluator.best_v, evaluator
+
+
+class L2ALoopState(NamedTuple):
+    """The whole resumable state of the TrainLoop-driven dREINFORCE run."""
+
+    params: Dict[str, torch.Tensor]  # the policy net's state dict
+    opt_state: dict  # ClippedAdam.state_dict()
+    generator: torch.Generator
+    best_xs: torch.Tensor  # bool [num_sims, N]
+    best_vs: torch.Tensor  # f32 [num_sims]
+
+
+def solve_maxcut_l2a_runner(
+    graph: Graph,
+    cfg: L2AConfig = L2AConfig(),
+    run_dir: str = "runs/l2a",
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    log_every: int = 1,
+    device=None,
+    timings: Optional[Dict[str, List[float]]] = None,
+):
+    """Instance-wise dREINFORCE through `train.runner.TrainLoop`: a step is
+    one iteration (`seq_len` rollout steps, then the PPO update) over
+    `cfg.num_iters` steps, with checkpoint and resume of the full state, the
+    `metrics.jsonl` stream (`best_cut`, `mean_cut`, `ppo_loss`) and the stop
+    sentinel. The generator is drawn from as in `solve_maxcut_l2a`, whose
+    incumbents it reaches over the same iterations. `timings` as in the
+    solve. Runs on `cuda` unless `device="cpu"`. Returns (best_x
+    np.bool_[n], best_v, final state)."""
+    from rlsolver_tpu_torch.train.runner import LoopConfig, TrainLoop
+
+    dev = resolve_device(device)
+    clock = _Timings(dev, timings)
+    env, gen, net, optimizer, steps = _l2a_setup(graph, cfg, dev, clock)
+
+    def step_fn(state: L2ALoopState):
+        net.load_state_dict(state.params)
+        optimizer.load_state_dict(state.opt_state)
+        best_xs, best_vs, batch = _rollout(steps, state.generator, state.best_xs, state.best_vs, cfg.seq_len, clock)
+        t0 = clock.tick()
+        losses = steps.ppo_update(state.generator, batch)
+        clock.lap("ppo", t0)
+        metrics = {"best_cut": best_vs.max(), "mean_cut": best_vs.mean(), "ppo_loss": losses.mean()}
+        params = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        return L2ALoopState(params, optimizer.state_dict(), state.generator, best_xs, best_vs), metrics
+
+    best_xs = env.random_xs(gen, cfg.num_sims)
+    params = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    state = L2ALoopState(params, optimizer.state_dict(), gen, best_xs, env.obj(best_xs))
+    loop = TrainLoop(LoopConfig(run_dir=run_dir, total_steps=cfg.num_iters, log_every=log_every,
+                                checkpoint_every=checkpoint_every, resume=resume,
+                                samples_per_step=cfg.seq_len * cfg.num_sims * cfg.num_repeats), step_fn)
+    state = loop.run(state)
+    top = int(torch.argmax(state.best_vs))
+    return state.best_xs[top].cpu().numpy(), float(state.best_vs[top]), state

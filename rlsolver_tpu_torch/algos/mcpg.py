@@ -18,6 +18,10 @@ integer weights. Whenever `sweep_mode="packed"` the warm start's local search
 ends in K5, K8a or K8b. On non-integer weights `sweep_mode="packed"` raises
 ValueError, as in the JAX package. `sweep_mode="colored"` updates one color
 class of `Graph.greedy_coloring` at a time from one f32 GEMM (`colored_sweep`).
+
+`solve_maxcut_mcpg_runner` runs the same rounds through `train.runner.TrainLoop`:
+checkpoint and resume of the whole state (policy, Adam state, generator,
+incumbents, restart rows), `metrics.jsonl` and the stop sentinel.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.core.result import write_graph_result
-from rlsolver_tpu_torch.device import resolve_device
+from rlsolver_tpu_torch.device import resolve_device, synchronize
 from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
 from rlsolver_tpu_torch.eval.evaluator import Evaluator
 from rlsolver_tpu_torch.models.policy import BernoulliPolicy
@@ -174,6 +178,35 @@ def new_policy(num_nodes: int, cfg: MCPGConfig, device):
     return policy, ClippedAdam(policy.parameters(), cfg.lr)
 
 
+def _warm_start(env: MaxcutEnv, gen: torch.Generator, cfg: MCPGConfig):
+    """The incumbents' warm start: parallel local search on C chains
+    (MCPG.py:342-348). Returns (xs bool [C, N], vs f32 [C])."""
+    xs = env.random_xs(gen, cfg.total_mcmc_num)
+    vs = env.obj(xs)
+    for _ in range(cfg.warmup_ls_rounds):
+        xs, vs = env.local_search(gen, xs, vs)
+    return xs, vs
+
+
+def _round(steps: Steps, gen: torch.Generator, policy: BernoulliPolicy, optimizer: ClippedAdam, start_bits,
+           best_xs, best_vs, sps_log: Optional[list] = None):
+    """One MCPG round, the body that the solve and the runner share so that
+    they draw alike: sample from the policy at the restart rows, reduce into
+    the incumbents, then the policy's Adam steps. With `sps_log`, appends
+    the samples per second of the sample and reduce steps. Returns (cuts,
+    best_xs, best_vs, restart bits [R*C, N])."""
+    t0 = time.time()
+    with torch.no_grad():
+        probs = policy()
+    mh, ls_bits, cuts = steps.sample_step(gen, probs, start_bits)
+    best_xs, best_vs, restart = steps.reduce_step(ls_bits, cuts, best_xs, best_vs)
+    if sps_log is not None:
+        synchronize()
+        sps_log.append(start_bits.shape[0] / (time.time() - t0))
+    steps.update_step(policy, optimizer, mh, cuts)
+    return cuts, best_xs, best_vs, restart
+
+
 def solve_maxcut_mcpg(
     graph: Graph,
     cfg: MCPGConfig = MCPGConfig(),
@@ -190,17 +223,12 @@ def solve_maxcut_mcpg(
     # packed sweep_mode also runs the warm start's 1-flip sweep on K5 or K8
     env = MaxcutEnv(graph, dev, packed_sweep=cfg.sweep_mode == "packed")
     data = SweepData.build(graph, dev) if cfg.sweep_mode != "packed" else None
-    C, R = cfg.total_mcmc_num, cfg.repeat_times
+    R = cfg.repeat_times
     steps = _build_steps(env, data, cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(cfg.seed)
 
-    # warm start: parallel local search on C chains (MCPG.py:342-348)
-    xs = env.random_xs(gen, C)
-    vs = env.obj(xs)
-    for _ in range(cfg.warmup_ls_rounds):
-        xs, vs = env.local_search(gen, xs, vs)
-    best_xs, best_vs = xs, vs
+    best_xs, best_vs = _warm_start(env, gen, cfg)
 
     evaluator = Evaluator(save_dir, graph.num_nodes, best_xs[0].cpu().numpy(), float(best_vs[0]), True)
     start = time.time()
@@ -211,14 +239,9 @@ def solve_maxcut_mcpg(
     for epoch in range(cfg.max_epoch_num):
         policy, optimizer = new_policy(graph.num_nodes, cfg, dev)  # per-epoch reset
         for j in range(rounds_per_epoch):
-            t0 = time.time()
-            with torch.no_grad():
-                probs = policy()
-            mh, ls_bits, cuts = steps.sample_step(gen, probs, start_bits)
-            best_xs, best_vs, start_bits = steps.reduce_step(ls_bits, cuts, best_xs, best_vs)
-            top = int(torch.argmax(best_vs))  # waits for the round's kernels
-            sps_log.append((R * C) / (time.time() - t0))
-            steps.update_step(policy, optimizer, mh, cuts)
+            _, best_xs, best_vs, start_bits = _round(steps, gen, policy, optimizer, start_bits, best_xs, best_vs,
+                                                     sps_log)
+            top = int(torch.argmax(best_vs))
             evaluator.record(epoch * rounds_per_epoch + j + 1, float(best_vs[top]), best_xs[top].cpu().numpy())
             if verbose and j % 8 == 0:
                 print(evaluator.log_line(j, f"samples/s {sps_log[-1]:.0f}"))
@@ -240,3 +263,73 @@ def solve_maxcut_mcpg(
             info={"samples_per_second": float(np.mean(sps_log[1:]) if len(sps_log) > 1 else 0)},
         )
     return evaluator.best_x, evaluator.best_v, evaluator
+
+
+class MCPGLoopState(NamedTuple):
+    """The whole resumable state of the TrainLoop-driven MCPG run. The
+    restart rows of a round are R copies of the chains' best-of-repeats
+    (`reduce_step`), so the state keeps the [C, N] rows and the step repeats
+    them: a checkpoint holds 2 C N bits of chains, not (R + 1) C N."""
+
+    logits: torch.Tensor  # f32 [N], the policy
+    opt_state: dict  # ClippedAdam.state_dict()
+    generator: torch.Generator
+    best_xs: torch.Tensor  # bool [C, N], per-chain incumbents
+    best_vs: torch.Tensor  # f32 [C]
+    start_xs: torch.Tensor  # bool [C, N], the next round's restart rows
+    round_idx: int
+
+
+def solve_maxcut_mcpg_runner(
+    graph: Graph,
+    cfg: MCPGConfig = MCPGConfig(),
+    run_dir: str = "runs/mcpg",
+    total_rounds: Optional[int] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    log_every: int = 1,
+    device=None,
+):
+    """MCPG through `train.runner.TrainLoop`: checkpoint and resume of the
+    full state, the `metrics.jsonl` stream (`best_cut`, `mean_cut`,
+    samples/s) and the stop sentinel. The generator is drawn from in the
+    order of `solve_maxcut_mcpg`, so over `max_epoch_num * rounds_per_epoch`
+    rounds (the default `total_rounds`) the two reach the same incumbents;
+    a resumed run continues the uninterrupted one draw for draw. The
+    per-epoch policy reset (MCPG.py:366-367) happens at every round with
+    `round_idx % rounds_per_epoch == 0`. Runs on `cuda` unless
+    `device="cpu"`. Returns (best_x np.bool_[n], best_v, final state)."""
+    from rlsolver_tpu_torch.train.runner import LoopConfig, TrainLoop
+
+    dev = resolve_device(device)
+    env = MaxcutEnv(graph, dev, packed_sweep=cfg.sweep_mode == "packed")
+    data = SweepData.build(graph, dev) if cfg.sweep_mode != "packed" else None
+    C, R = cfg.total_mcmc_num, cfg.repeat_times
+    steps = _build_steps(env, data, cfg)
+    rounds_per_epoch = max(1, cfg.reset_epoch_num // cfg.sample_epoch_num)
+    if total_rounds is None:
+        total_rounds = cfg.max_epoch_num * rounds_per_epoch
+
+    def step_fn(state: MCPGLoopState):
+        policy, optimizer = new_policy(graph.num_nodes, cfg, dev)  # the epoch's reset
+        if state.round_idx % rounds_per_epoch:
+            with torch.no_grad():
+                policy.logits.copy_(state.logits)
+            optimizer.load_state_dict(state.opt_state)
+        cuts, best_xs, best_vs, restart = _round(steps, state.generator, policy, optimizer, state.start_xs.repeat(R, 1),
+                                                 state.best_xs, state.best_vs)
+        metrics = {"best_cut": best_vs.max(), "mean_cut": cuts.mean()}
+        return MCPGLoopState(policy.logits.detach().clone(), optimizer.state_dict(), state.generator, best_xs,
+                             best_vs, restart[:C].clone(), state.round_idx + 1), metrics
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    best_xs, best_vs = _warm_start(env, gen, cfg)
+    policy, optimizer = new_policy(graph.num_nodes, cfg, dev)
+    state = MCPGLoopState(policy.logits.detach().clone(), optimizer.state_dict(), gen, best_xs, best_vs,
+                          best_xs.clone(), 0)
+    loop = TrainLoop(LoopConfig(run_dir=run_dir, total_steps=total_rounds, log_every=log_every,
+                                checkpoint_every=checkpoint_every, resume=resume, samples_per_step=R * C), step_fn)
+    state = loop.run(state)
+    top = int(torch.argmax(state.best_vs))
+    return state.best_xs[top].cpu().numpy(), float(state.best_vs[top]), state

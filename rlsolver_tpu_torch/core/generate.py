@@ -211,3 +211,15 @@ def build_w70_like() -> Graph:
     JAX package's instance-wise runs (10000 nodes, 9999 edges, seed 70) with
     weights in +-{1..7}."""
     return build_weighted_gnm(10000, 9999, 70, "W70like")
+
+
+def generate_knapsack(num_items: int, seed: Optional[int] = None, max_weight: int = 50, max_profit: int = 250):
+    """A random knapsack (numpy's `default_rng(seed)`, as the JAX package):
+    integer weights and profits, capacity floor(30% of the total weight)."""
+    from rlsolver_tpu_torch.core.io import KnapsackInstance
+
+    rng = np.random.default_rng(seed)
+    weights = rng.integers(1, max_weight + 1, num_items).astype(np.float32)
+    profits = rng.integers(1, max_profit + 1, num_items).astype(np.float32)
+    capacity = float(np.floor(0.3 * weights.sum()))
+    return KnapsackInstance(seed or 0, capacity, weights, profits)

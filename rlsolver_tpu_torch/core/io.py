@@ -1,9 +1,9 @@
 """Gset/syn graph files (counterpart of `rlsolver_tpu/core/io.py`).
 
 Format: first non-comment line "N M", then M lines "n0 n1 w" with 1-indexed
-nodes; lines containing "//" are comments. Also the knapsack and set-cover
-instance containers that the batched objectives read (`ops/objectives.py`);
-their file readers are not ported yet.
+nodes; lines containing "//" are comments. Also the knapsack, set-cover and
+multi-knapsack instances and their readers (RLSolver's
+`util_read_data.py:245-344` formats).
 """
 
 from __future__ import annotations
@@ -38,6 +38,16 @@ def read_graph(filename: str) -> Graph:
     return Graph.from_edge_list(num_nodes, edges, name=name)
 
 
+def write_graph(graph: Graph, filename: str) -> None:
+    """Write in the gset txt format (1-indexed, integer weights as integers)."""
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    with open(filename, "w") as f:
+        f.write(f"{graph.num_nodes} {graph.num_edges}\n")
+        for (a, b), w in zip(graph.edges, graph.weights):
+            wtxt = str(int(w)) if float(w).is_integer() else repr(float(w))
+            f.write(f"{int(a) + 1} {int(b) + 1} {wtxt}\n")
+
+
 def list_graph_files(directory: str, prefixes: Sequence[str]) -> List[str]:
     """All .txt files in `directory` whose basename starts with any prefix."""
     out = []
@@ -59,6 +69,18 @@ class KnapsackInstance:
         return int(self.weights.shape[0])
 
 
+def read_knapsack(filename: str) -> KnapsackInstance:
+    """`id n capacity` then n pairs `weight profit`."""
+    with open(filename, "r") as f:
+        parts = f.read().split()
+    instance_id, num_items, capacity = int(parts[0]), int(parts[1]), float(parts[2])
+    vals = np.asarray([float(p) for p in parts[3:]], np.float32)
+    weights, profits = vals[0::2], vals[1::2]
+    if weights.shape[0] != num_items or profits.shape[0] != num_items:
+        raise ValueError(f"knapsack item count mismatch in {filename}")
+    return KnapsackInstance(instance_id, capacity, weights, profits)
+
+
 @dataclasses.dataclass(frozen=True)
 class SetCoverInstance:
     num_items: int
@@ -75,3 +97,55 @@ class SetCoverInstance:
             for it in items:
                 m[si, it - 1] = True
         return m
+
+
+def read_set_cover(filename: str) -> SetCoverInstance:
+    """`num_items num_sets`, then one line of 1-indexed item ids per set."""
+    with open(filename, "r") as f:
+        first = f.readline().split()
+        num_items, num_sets = int(first[0]), int(first[1])
+        subsets = []
+        for line in f:
+            if line.strip():
+                subsets.append(tuple(int(x) for x in line.split()))
+    if len(subsets) != num_sets:
+        raise ValueError(f"set-cover subset count mismatch in {filename}")
+    return SetCoverInstance(num_items, tuple(subsets))
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiKnapsackInstance:
+    optimal_obj: float
+    profits: np.ndarray  # [n]
+    constraints: np.ndarray  # [m, n]
+    rhs: np.ndarray  # [m]
+
+
+def read_multiknapsack(filename: str) -> MultiKnapsackInstance:
+    """The two layouts of RLSolver's instances (`util_read_data.py:245-311`
+    and the mknap2 family):
+
+      3-token header: `n m optimal / profits[n] / m rows[n] / rhs[m]`
+      2-token header: `m n / profits[n] / rhs[m] / m rows[n] / optimal`
+    """
+    with open(filename, "r") as f:
+        first = f.readline().split()
+        tokens = f.read().split()
+    it = iter(tokens)
+
+    def take(count: int) -> list:
+        return [float(next(it)) for _ in range(count)]
+
+    if len(first) >= 3:
+        n_vars, m_cons, optimal = int(first[0]), int(first[1]), float(first[2])
+        profits = take(n_vars)
+        cons = [take(n_vars) for _ in range(m_cons)]
+        rhs = take(m_cons)
+    else:
+        m_cons, n_vars = int(first[0]), int(first[1])
+        profits = take(n_vars)
+        rhs = take(m_cons)
+        cons = [take(n_vars) for _ in range(m_cons)]
+        optimal = float(next(it))
+    return MultiKnapsackInstance(optimal, np.asarray(profits, np.float32), np.asarray(cons, np.float32),
+                                 np.asarray(rhs, np.float32))

@@ -68,6 +68,13 @@ class MaxcutEnv:
         """Per-node flip gains, f32 [B, N]."""
         return cut_ops.flip_gains(xs, self.cg, self.mode)
 
+    def node_contrib(self, xs: torch.Tensor) -> torch.Tensor:
+        """Per-node cut contributions, f32 [B, N] (the slow twin's
+        `calculate_obj_values_for_loop` by node)."""
+        if self.cg.adj is not None and self.mode != "sparse":
+            return cut_ops.node_cut_contrib_dense(xs, self.cg)
+        return cut_ops.node_cut_contrib_sparse(xs, self.cg)
+
     def local_search(
         self,
         gen: torch.Generator,

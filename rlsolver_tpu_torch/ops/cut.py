@@ -123,5 +123,22 @@ def flip_gains_sparse(xs: torch.Tensor, cg: CutGraph) -> torch.Tensor:
     return cg.deg_w[None, :] - 2.0 * node_cut_contrib_sparse(xs, cg)
 
 
+def node_cut_contrib_dense(xs: torch.Tensor, cg: CutGraph) -> torch.Tensor:
+    """contrib[b, i] = (deg_w[i] - gain[b, i]) / 2, from one matmul."""
+    return 0.5 * (cg.deg_w[None, :] - flip_gains_dense(xs, cg))
+
+
 def flip_gains(xs: torch.Tensor, cg: CutGraph, mode: str = "auto") -> torch.Tensor:
     return flip_gains_dense(xs, cg) if _use_dense(cg, mode) else flip_gains_sparse(xs, cg)
+
+
+def apply_flip_update_gains(s: torch.Tensor, gains: torch.Tensor, node: int, adj_row: torch.Tensor):
+    """Flip `node` in every row of the signs s [B, N] and update the gains
+    [B, N] by the rank-1 rule gain_j' = gain_j - 2 s_j s_i A_ij (j != i),
+    gain_i' = -gain_i; adj_row = A[node]. Returns new (s, gains)."""
+    s_i = s[:, node]
+    gains_new = gains + -2.0 * s_i[:, None] * s * adj_row[None, :]
+    gains_new[:, node] = -gains[:, node]
+    s_new = s.clone()
+    s_new[:, node] = -s_i
+    return s_new, gains_new

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of `rlsolver_tpu_torch`
-loads no JAX and nothing of `rlsolver_tpu`, and no source of the port (nor
+loads no JAX, no pandas and no networkx (the card's machine has neither)
+and nothing of `rlsolver_tpu`, and no source of the port (nor
 `chip_smoke.py`) names them."""
 
 import os
@@ -11,7 +12,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rlsolver_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "rlsolver_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "networkx", "pandas", "rlsolver_tpu")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
