@@ -85,7 +85,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                launched, no other sweep, their plain versions made to raise;
                the checkpoint's bytes and the seconds per round beside the
                main phase's; then the device time by kernel of one rollout
-               step and one PPO update of the L2A runner's steps;
+               step and of the first 4 of a PPO update's 16 minibatches of
+               the L2A runner's steps;
      problems — the CLI's problem axis (`run_problems`): greedy MIS, MVC and
                partitioning and the four colorings on BA_1000_ID0..2 (each
                re-scored, each coloring proper); knapsack on
@@ -180,11 +181,48 @@ Phases (each prints its seconds; any failure exits non-zero):
                restore bit for bit (`run_pattern1`); no kernel of the port
                lies on these four phases' path, and their launches are
                counted and printed;
+     tnco    — TNCO at random_circuit_nodes(53, 12, seed=0), Sycamore N53's
+               12-layer shape (418 tensors, 677 bonds, 6770 bits; after
+               baselines, `run_tnco`): K3 bit for bit against its plain
+               version at MCPG's 128 chains x 6770 bits x 64 rounds and
+               timed there; `solve_tnco_mcpg` at TncoMcpgConfig's widths (32 x
+               4 chains, 64 MH rounds, 4 local-search iterations), 4 of 30
+               rounds, with sampler="fused" (K3 must launch) and "scan" (no
+               kernel); `solve_tnco_local_search` at its defaults, 2 of 30
+               rounds; every order a permutation of the bonds, every cost its
+               float64 re-score within 1e-4, every history non-increasing,
+               every cost below the best of 128 random orders; an
+               evaluation's CUDA graph equal to the eager step loop; s/round,
+               s/evaluation, the device time of one fused round, peak
+               memory; then MCPG (scan, 30 rounds) at random_circuit_nodes(12,
+               14) for seeds 0-2, their mean within the JAX package's CPU
+               runs' range (JAX_TNCO_SMALL) widened by 0.1;
+     ppo     — flip-MDP PPO on G22-like at PPOConfig's widths (128 envs x 64
+               steps, 4 minibatches x 4 epochs), PPO_ITERS iterations, the
+               device time of one; A2C; a warm start from greedy's cut as a
+               start_str (every env at it); an untrained S2V constructive
+               policy's greedy and sampled rollouts on BA_100_ID0..9 (each
+               cut its host re-score); a PER round at DQN's replay capacity
+               (8192 adds, unequal priorities written, 4096 draws whose
+               frequencies and weights follow them, a sample of 64, its
+               update); losses finite, how far PPO moved its policy in
+               PPO_ITERS iterations (KL from the start, entropy drop) within
+               JAX's seeds' range, the same run at lr = 0 outside it; no
+               kernel launched (`run_ppo`);
+     beamforming — `train_beamforming` at its defaults (4 users x 4
+               antennas, batch 256, episode 6, 300 steps) for seeds 0-2, the
+               mean final rate within JAX's seeds' range (JAX_BEAMFORMING)
+               widened by 0.1; the trained policy at least MMSE less 0.3 on
+               a held-out batch, ZF nulling interference, MMSE at least ZF at
+               low SNR, the relay's rates finite and positive
+               (`run_beamforming`);
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file, and `--alg l2a` and
                `--alg local_search` on BA_100_ID0 with and without `--fast`;
                then the CLI's `main` in this process with `--alg sa`,
-               `--alg isco` and `--alg ga` on BA_100_ID0;
+               `--alg isco` and `--alg ga` on BA_100_ID0 and `--alg vqe` on
+               BA_16_ID0 (each re-scored by the CLI, which raises on a
+               mismatch);
  10. time    — kernel, plain-version and bound times at each path's shapes
                (K7's with its transposes; K8a on D2000-like, the d2000
                phase's graph and chains), K6 on G22-like's own lists beside
@@ -211,6 +249,7 @@ no result.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -1466,6 +1505,7 @@ def run_baselines(dev, errs: dict) -> dict:
 RUNNER_ROUNDS, RUNNER_CKPT = 4, 2
 RUNNER_PLAIN_SWEEP = 8192  # of the runner's chains, those K4's plain version checks (its Python loop is slow)
 L2A_CUT = dict(pretrain_steps=20, num_iters=2, seq_len=4, seed=0)
+L2A_PROFILE_UPDATES = 4  # of the PPO update's 16 minibatches, those profiled
 
 
 def _metrics_rows(run_dir: str) -> list:
@@ -1483,8 +1523,9 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
     seconds per round beside the main phase's (`main_seconds`). Then holds
     K3 and K4 against their plain versions at the MCPG runner's shape, on
     its last round's restart rows and policy (into `errs`), and prints the
-    device time of one rollout step and one PPO update of the L2A runner's
-    steps. Returns the launches of both runners."""
+    device time of one rollout step and of the first L2A_PROFILE_UPDATES
+    minibatches of a PPO update of the L2A runner's steps. Returns the
+    launches of both runners."""
     import shutil
     from rlsolver_tpu_torch.algos import l2a, mcpg
     from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, mh_sampler as mh
@@ -1604,7 +1645,10 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
     # their device time: the runner's setup (the same seed: the same
     # encoder features and steps) with the resumed run's weights, Adam state
     # and incumbents, the batch of one rollout from them
-    setup = l2a._l2a_setup(g, l2a_cfg, dev)
+    # (the update profiled over its first L2A_PROFILE_UPDATES of
+    # update_times minibatches: each is the same work, and the profiler's
+    # trace of all 16 took about 50 s)
+    setup = l2a._l2a_setup(g, dataclasses.replace(l2a_cfg, update_times=L2A_PROFILE_UPDATES), dev)
     setup.net.load_state_dict(res.params)
     setup.optimizer.load_state_dict(res.opt_state)
     xs, vs, batch = l2a._rollout(setup.steps, res.generator, res.best_xs, res.best_vs, l2a_cfg.seq_len,
@@ -1612,9 +1656,406 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
     candidates = l2a_cfg.num_sims * l2a_cfg.num_repeats
     profile_device(f"one L2A runner rollout step ({candidates} candidates)",
                    lambda: setup.steps.rollout_step(res.generator, xs, vs))
-    profile_device(f"one L2A runner PPO update ({l2a_cfg.update_times} minibatches of {l2a_cfg.num_sims}, T = "
-                   f"{l2a_cfg.seq_len})", lambda: setup.steps.ppo_update(res.generator, batch))
+    profile_device(f"one L2A runner PPO update, its first {L2A_PROFILE_UPDATES} of {l2a_cfg.update_times} "
+                   f"minibatches of {l2a_cfg.num_sims}, T = {l2a_cfg.seq_len}",
+                   lambda: setup.steps.ppo_update(res.generator, batch))
     return {k: mcpg_counts[k] + l2a_counts[k] for k in mcpg_counts}
+
+
+# TNCO at Sycamore N53's 12-layer shape: MCPG at TncoMcpgConfig's widths, its
+# depth cut from 30 rounds, both samplers; the local-search solver at its
+# defaults, its depth cut likewise
+TNCO_ROUNDS = 4
+TNCO_LS_ROUNDS = 2
+TNCO_RANDOM = 128  # random orders whose best cost every MCPG run must beat
+# The JAX package's solve_tnco_mcpg (sampler="scan", TncoMcpgConfig's
+# defaults, 30 rounds) at random_circuit_nodes(12, 14, seed=0), seeds 0-2,
+# its train_beamforming (defaults; the mean of the last 10 rates), seeds
+# 0-2, and the PPO runs below, on the CPU:
+#   JAX_PLATFORMS=cpu python scripts/jax_tnco_beamforming_reference.py
+JAX_TNCO_SMALL = (6.663870811462402, 6.524714469909668, 6.589798927307129)
+JAX_BEAMFORMING = (8.251940631866455, 8.278915214538575, 8.247726821899414)
+SPREAD_MARGIN = 0.1  # the port's mean must lie within JAX's seeds' range widened by this
+# ... and its PPO on G22-like (PPOConfig's defaults, the step size annealed
+# over 100 iterations), seeds 0-2: how far the policy moved in its first
+# PPO_ITERS iterations, on the start observations (the envs' reset bits):
+# the mean KL(pi_40 || pi_0) and the entropy of pi_0 less that of pi_40
+JAX_PPO_KL = (0.24228733777999878, 0.21176251769065857, 0.18738308548927307)
+JAX_PPO_ENTROPY_DROP = (0.14546585083007812, 0.11854410171508789, 0.14081859588623047)
+# widened by about the KL's seed range: lr = 0 gives 0 and 0, at least 0.069
+# below either band (PERF.md, PR 13)
+PPO_MOVE_MARGIN = 0.05
+PPO_ITERS, A2C_ITERS = 40, 10  # cut from PPOConfig's 100 iterations (the step size still annealed over 100)
+PER_TD = (0.1, 1.0, 4.0, 16.0)  # |TD error| of slot k: PER_TD[k % 4]
+PER_DRAWS = 4096  # draws whose frequencies are held to the priorities
+VQE_GRAPH = "BA_16_ID0"  # the statevector VQE takes n <= 16 (2^16 amplitudes)
+
+
+def within_spread(label: str, values, jax_values, margin: float = SPREAD_MARGIN) -> None:
+    """Fails unless the mean of `values` lies in [min, max] of `jax_values`
+    widened by `margin` on both sides."""
+    mean, lo, hi = float(np.mean(values)), min(jax_values) - margin, max(jax_values) + margin
+    print(f"  {label}: port {list(values)} (mean {mean:.4f}); JAX {list(jax_values)} (mean "
+          f"{float(np.mean(jax_values)):.4f}); allowed [{lo:.4f}, {hi:.4f}]", flush=True)
+    if not lo <= mean <= hi:
+        raise AssertionError(f"{label}: the port's mean {mean:.4f} is outside [{lo:.4f}, {hi:.4f}]")
+
+
+def policy_movement(model0, model, obs) -> tuple:
+    """(mean KL(pi || pi_0), mean entropy of pi_0 less that of pi) over the
+    rows of obs, pi_0 and pi the actor policies of model0 and model (as
+    `scripts/jax_tnco_beamforming_reference.py:policy_movement`)."""
+    with torch.no_grad():
+        lp0 = torch.log_softmax(model0(obs)[0], dim=-1)
+        lp = torch.log_softmax(model(obs)[0], dim=-1)
+        kl = torch.sum(lp.exp() * (lp - lp0), dim=-1).mean()
+        drop = torch.sum(lp.exp() * lp, dim=-1).mean() - torch.sum(lp0.exp() * lp0, dim=-1).mean()
+    return float(kl), float(drop)
+
+
+def check_order(label: str, env, order, cost: float, history, worse_than: float = None) -> None:
+    """An order must be a permutation of the run edges, its cost equal to the
+    float64 host twin's within 1e-4, its history non-increasing and, where
+    given, its cost below `worse_than`."""
+    if sorted(order.tolist()) != list(range(env.run_edges)):
+        raise AssertionError(f"{label}: the returned order is not a permutation of the {env.run_edges} run edges")
+    acc = float(env.log10_multiple_times_accurate(order[None])[0])
+    if not abs(acc - cost) < 1e-4:
+        raise AssertionError(f"{label}: cost {cost} but the float64 twin gives {acc}")
+    if any(b > a for a, b in zip(history, history[1:])):
+        raise AssertionError(f"{label}: the history increases: {history}")
+    if worse_than is not None and not cost < worse_than:
+        raise AssertionError(f"{label}: cost {cost} not below the best random order's {worse_than}")
+    print(f"  {label}: log10 cost {cost:.6f} (float64 twin {acc:.6f}); history {[round(h, 4) for h in history]}",
+          flush=True)
+
+
+def run_tnco(dev, errs: dict):
+    """TNCO on random_circuit_nodes(53, 12, seed=0), Sycamore N53's 12-layer
+    shape (418 tensors, 677 bonds, 6770 bits): K3 bit for bit against its
+    plain version at MCPG's shape (128 chains x 6770 bits x 64 rounds); MCPG
+    with sampler="fused" (K3, the phase's main path, its launches counted)
+    and "scan"; the local-search solver; every order a permutation, every
+    cost its float64 re-score, every history non-increasing, both MCPG runs
+    below the best of 128 random orders; s/round, s/evaluation, the idle
+    share of one round, peak memory, K3's ms; then the quality check on
+    random_circuit_nodes(12, 14) against JAX's seeds. Returns (the phase's
+    launches, K3's timing at TNCO's shape)."""
+    from rlsolver_tpu_torch.algos.tnco_solver import (TncoMcpgConfig, TncoSearchConfig, init_tnco_mcpg_state,
+                                                      make_tnco_mcpg_step, solve_tnco_local_search, solve_tnco_mcpg)
+    from rlsolver_tpu_torch.envs.tnco import TensorNetwork, TncoEnv, random_circuit_nodes
+    from rlsolver_tpu_torch.ops.kernels import build, codec, mh_sampler as mh
+
+    net = TensorNetwork.from_nodes_list(*random_circuit_nodes(53, 12, seed=0), name="circuit_n53_m12_shape")
+    env = TncoEnv(net, dev)
+    cfg = TncoMcpgConfig()
+    b, n = cfg.num_chains * cfg.repeat_times, net.num_bits
+    print(f"  {net.name}: {net.num_nodes} tensors, {net.num_edges} bonds, {n} bits ({net.num_bases} a bond); MCPG "
+          f"{cfg.num_chains} x {cfg.repeat_times} chains, {cfg.mh_rounds} MH rounds, {cfg.ls_iters} local-search "
+          f"iterations, lr {cfg.lr}, {TNCO_ROUNDS} of {cfg.num_rounds} rounds", flush=True)
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(53)
+
+    # K3 at TNCO's shape, bit for bit, and its time there
+    probs = torch.rand(n, generator=gen, device=dev) * 0.6 + 0.2
+    bits = env.random_xs(gen, b)
+    thr, words = mh.fused_thresholds(probs), codec.pack_bits(bits)
+    w = codec.num_words(n)
+    plain = codec.unpack_bits(mh.mh_fused_plain(4242, thr, words, n, cfg.mh_rounds), n)
+    require_equal(f"K3 mh_sample_fused at TNCO's shape ({b} chains x {n} bits x {cfg.mh_rounds} rounds)",
+                  mh.mh_sample_fused(4242, probs, bits, cfg.mh_rounds), plain, errs, "mh_sample_fused")
+    k3 = dict(tnco_shape=[b, n, cfg.mh_rounds],
+              tnco_ms=cuda_ms(lambda: mh.MH_FUSED.launch(thr, words, b, w, n, cfg.mh_rounds, 4242), 20),
+              tnco_plain_ms=cuda_ms(lambda: mh.mh_fused_plain(4242, thr, words, n, cfg.mh_rounds), 1, warmup=False))
+    k3["tnco_bound_ms"], k3["tnco_bound_by"] = bound(2 * b * w * 4 + thr.numel() * 4, cfg.mh_rounds * b * K3_OPS, 0)
+    print(f"  K3 at TNCO's shape: {k3['tnco_ms']:.4f} ms (bound {k3['tnco_bound_ms']:.5f} ms, "
+          f"{k3['tnco_bound_by']}; plain {k3['tnco_plain_ms']:.1f} ms); {-(-b // 128)} block(s) of the card's "
+          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+
+    # the best of 128 random orders; one evaluation's CUDA graph (captured at
+    # its first call) against the eager step loop, bit for bit, and the
+    # seconds of each
+    sorts = env.random_edge_sorts(gen, b)
+    t0 = time.time()
+    pows = env.contraction_pow_counts(sorts)
+    torch.cuda.synchronize()
+    capture_s = time.time() - t0
+    eager = env._pow_counts_steps(sorts)
+    if not torch.equal(pows, eager):
+        raise AssertionError("TNCO: the CUDA graph's contraction counts differ from the eager step loop's")
+
+    def seconds(fn):
+        out = []
+        for _ in range(3):
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.time() - t0)
+        return out
+
+    eval_s, eager_s = seconds(lambda: env.log10_multiple_times(sorts)), seconds(lambda: env._pow_counts_steps(sorts))
+    random_best = float(env.log10_multiple_times(env.random_edge_sorts(gen, TNCO_RANDOM)).min())
+    print(f"  contraction counts of {b} orders ({net.run_edges} steps): the CUDA graph equals the eager loop bit "
+          f"for bit; first call (capture) {capture_s:.3f} s; seconds per evaluation {eval_s}, eager "
+          f"{eager_s}; best of {TNCO_RANDOM} random orders {random_best:.4f}", flush=True)
+
+    counts = {}
+    for sampler in ("fused", "scan"):
+        run_cfg = dataclasses.replace(cfg, num_rounds=TNCO_ROUNDS, sampler=sampler)
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counts()
+        times = []
+        order, cost, hist = solve_tnco_mcpg(env, run_cfg, timings=times)
+        torch.cuda.synchronize()
+        counts[sampler] = {k.name: k.launches for k in build.KERNELS}
+        print(f"  MCPG sampler={sampler}: seconds per round {times}; max_memory_allocated "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the phase's start", flush=True)
+        check_order(f"MCPG sampler={sampler}", env, order, cost, hist, worse_than=random_best)
+    require_launches("TNCO MCPG sampler=fused", counts["fused"], ("mh_sample_fused",), [k for k in counts["fused"]])
+    require_launches("TNCO MCPG sampler=scan", counts["scan"], (), [k for k in counts["scan"]])
+
+    # where one fused round's time goes
+    state = init_tnco_mcpg_state(env, dataclasses.replace(cfg, sampler="fused"))
+    step = make_tnco_mcpg_step(env, dataclasses.replace(cfg, sampler="fused"))
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    profile_device(f"one TNCO MCPG round (fused, {b} chains, {cfg.ls_iters + 1} evaluations)", lambda: step(state))
+
+    ls_cfg = dataclasses.replace(TncoSearchConfig(), num_rounds=TNCO_LS_ROUNDS)
+    t0 = time.time()
+    build.reset_counts()
+    order, cost, hist = solve_tnco_local_search(env, ls_cfg)
+    ls_counts = {k.name: k.launches for k in build.KERNELS}
+    print(f"  local search: {ls_cfg.num_chains} chains, {ls_cfg.ls_iters} iterations a round, {TNCO_LS_ROUNDS} of "
+          f"{TncoSearchConfig().num_rounds} rounds in {time.time() - t0:.2f} s", flush=True)
+    check_order("local search", env, order, cost, hist, worse_than=random_best)
+    require_launches("TNCO local search", ls_counts, (), [k for k in ls_counts])
+
+    # quality against the JAX package's CPU runs, same network, sampler, seeds
+    small = TncoEnv(TensorNetwork.from_nodes_list(*random_circuit_nodes(12, 14, seed=0)), dev)
+    costs = []
+    t0 = time.time()
+    for s in range(len(JAX_TNCO_SMALL)):
+        order, cost, hist = solve_tnco_mcpg(small, TncoMcpgConfig(sampler="scan", seed=s))
+        check_order(f"random_circuit_nodes(12, 14) MCPG scan seed {s}", small, order, cost, hist)
+        costs.append(cost)
+    print(f"  random_circuit_nodes(12, 14): {small.num_nodes} tensors, {small.num_edges} bonds, "
+          f"{TncoMcpgConfig().num_rounds} rounds x {len(costs)} seeds in {time.time() - t0:.2f} s", flush=True)
+    within_spread("TNCO MCPG (scan) at random_circuit_nodes(12, 14), log10 cost", costs, JAX_TNCO_SMALL)
+    phase_memory("tnco", base)
+    return {k: counts["fused"][k] + counts["scan"][k] + ls_counts[k] for k in counts["fused"]}, k3
+
+
+def run_ppo(dev) -> dict:
+    """Flip-MDP PPO on G22-like at PPOConfig's widths (128 envs, horizon 64,
+    4 minibatches, 4 epochs; the step size annealed over the full 100
+    iterations), PPO_ITERS iterations; A2C (one full-batch update a
+    rollout) for A2C_ITERS; a warm start from greedy's cut as a start_str;
+    then S2V rollouts with an untrained `S2VConstructivePolicy` on
+    BA_100_ID0..9 (each cut its host re-score) and a PER round at DQN's
+    replay capacity. Losses must be finite, and how far the PPO run moved
+    its policy (`policy_movement`) within the JAX package's seeds' range
+    widened by PPO_MOVE_MARGIN, where the same run at lr = 0 must fall
+    outside. PER samples after unequal priorities are written: the weights
+    equal the host's, the frequencies follow the priorities. Returns the
+    phase's launches."""
+    from rlsolver_tpu_torch.algos.dqn import DQNConfig
+    from rlsolver_tpu_torch.algos.ppo import PPOConfig, a2c_config, init_ppo_state, make_ppo_iteration
+    from rlsolver_tpu_torch.classical.greedy import greedy_maxcut
+    from rlsolver_tpu_torch.core.encode import SolutionCodec
+    from rlsolver_tpu_torch.core.generate import build_g22_like, graph_from_name
+    from rlsolver_tpu_torch.envs.flip_mdp import FlipMdpEnv
+    from rlsolver_tpu_torch.models.s2v_policy import S2VConstructivePolicy, rollout_s2v_maxcut
+    from rlsolver_tpu_torch.ops.kernels import build
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+    from rlsolver_tpu_torch.train.replay import PrioritizedReplay, per_add, per_sample, per_update
+
+    g = build_g22_like()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counts()
+
+    def train(label, cfg, iters, profile=False):
+        env = FlipMdpEnv(g, horizon=cfg.horizon, device=dev)
+        iteration = make_ppo_iteration(env, cfg)
+        state = init_ppo_state(env, cfg, cfg.num_envs)
+        start_cut = float(state.env_state.cut.mean())
+        obs0, model0 = state.obs.clone(), copy.deepcopy(state.model)
+        hist, times = [], []
+        for _ in range(iters):
+            t0 = time.time()
+            state, m = iteration(state)
+            hist.append({k: float(v) for k, v in m.items()})
+            times.append(time.time() - t0)
+        print(f"  {label}: {cfg.num_envs} envs x {cfg.horizon} steps, {cfg.num_minibatches} minibatches x "
+              f"{cfg.update_epochs} epochs, {iters} of {cfg.num_iterations} iterations; seconds per iteration "
+              f"{[round(t, 4) for t in times]}; start mean cut {start_cut:.2f}; mean cut by iteration "
+              f"{[round(h['mean_cut'], 2) for h in hist]}; best {[h['best_cut'] for h in hist]}; loss "
+              f"{[round(h['loss'], 5) for h in hist]}", flush=True)
+        if not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"{label}: a loss is not finite")
+        move = policy_movement(model0, state.model, obs0)
+        if profile:
+            profile_device(f"one {label} iteration", lambda: iteration(state))
+        return move, hist
+
+    def move_within(label, move):
+        """Whether (KL, entropy drop) both lie in JAX's seeds' ranges widened
+        by PPO_MOVE_MARGIN."""
+        ok = True
+        for name, value, ref in (("KL(pi_40 || pi_0)", move[0], JAX_PPO_KL),
+                                 ("entropy drop", move[1], JAX_PPO_ENTROPY_DROP)):
+            lo, hi = min(ref) - PPO_MOVE_MARGIN, max(ref) + PPO_MOVE_MARGIN
+            ok = ok and lo <= value <= hi
+            print(f"  {label}: {name} on the start observations {value:.6f}; JAX {list(ref)}; allowed "
+                  f"[{lo:.4f}, {hi:.4f}]", flush=True)
+        return ok
+
+    # the policy is the thing PPO changes at this depth (neither package's
+    # PPO raises the cut here within 100 iterations): how far it moved must
+    # match JAX's, and the same run at lr = 0 (no update) must fail that
+    cfg = PPOConfig()
+    move, hist = train("PPO on G22like", cfg, PPO_ITERS, profile=True)
+    print(f"  PPO mean reward a step over the run {float(np.mean([h['mean_reward'] for h in hist])):.6f}, mean "
+          f"cut {float(np.mean([h['mean_cut'] for h in hist])):.2f}", flush=True)
+    if not move_within("PPO", move):
+        raise AssertionError("PPO: the policy did not move as JAX's does in as many iterations")
+    move0, _ = train("PPO at lr = 0 (control)", dataclasses.replace(cfg, lr=0.0), PPO_ITERS)
+    if move_within("PPO at lr = 0 (control)", move0):
+        raise AssertionError("PPO: the lr = 0 control passes the policy-movement check, which cannot tell learning")
+    train("A2C on G22like", a2c_config(cfg), A2C_ITERS)
+    bits, cut = greedy_maxcut(g, device=dev)
+    warm = dataclasses.replace(cfg, start_str=SolutionCodec(g.num_nodes).bits_to_str(np.asarray(bits).astype(bool)))
+    env = FlipMdpEnv(g, horizon=cfg.horizon, device=dev)
+    st = init_ppo_state(env, warm, cfg.num_envs)
+    host = obj_maxcut(np.asarray(bits).astype(np.int64), g)
+    if not (bool((st.env_state.xs == st.env_state.xs[:1]).all()) and float(st.env_state.cut.min()) == host == cut):
+        raise AssertionError(f"PPO warm start: envs do not all start at the greedy cut {host}")
+    st, m = make_ppo_iteration(env, warm)(st)
+    print(f"  warm start from greedy's cut {host}: every env at it; after one iteration mean cut "
+          f"{float(m['mean_cut']):.2f}, loss {float(m['loss']):.5f}", flush=True)
+
+    # S2V rollouts, untrained, on BA_100_ID0..9 at once
+    graphs = [graph_from_name(f"BA_100_ID{i}") for i in range(10)]
+    adj = torch.from_numpy(np.stack([gr.adjacency_dense() for gr in graphs])).to(dev)
+    model = S2VConstructivePolicy().to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for greedy in (True, False):
+        t0 = time.time()
+        with torch.no_grad():
+            xs, logp, cuts = rollout_s2v_maxcut(model, adj, gen, greedy=greedy)
+        cuts = cuts.tolist()
+        host = [obj_maxcut(x.astype(np.int64), gr) for x, gr in zip(xs.cpu().numpy(), graphs)]
+        print(f"  S2V rollout ({'greedy' if greedy else 'sampled'}, untrained) on BA_100_ID0..9 in "
+              f"{time.time() - t0:.2f} s: cuts {cuts}", flush=True)
+        if cuts != host:
+            raise AssertionError(f"S2V rollout: cuts {cuts} != host re-scores {host}")
+        if not (bool(torch.isfinite(logp).all()) and bool((xs.sum(dim=1) == 50).all())):
+            raise AssertionError("S2V rollout: each solution must move 50 nodes with a finite log-probability")
+
+    # PER at DQN's replay capacity and batch; the items' priorities set to
+    # (|td| + 1e-6)^alpha with |td| in PER_TD by slot, so that the sample's
+    # frequencies and weights are tested
+    dq = DQNConfig()
+    t0 = time.time()
+    example = (torch.zeros(100, 7, device=dev), torch.zeros((), dtype=torch.int64, device=dev),
+               torch.zeros((), device=dev))
+    buf = PrioritizedReplay.create(example, dq.buffer_capacity)
+    for i in range(dq.buffer_capacity):
+        buf = per_add(buf, (torch.full((100, 7), float(i % 97), device=dev), torch.tensor(i % 100, device=dev),
+                            torch.tensor(float(i), device=dev)))
+    add_s = time.time() - t0
+    slots = torch.arange(dq.buffer_capacity, device=dev)
+    buf = per_update(buf, slots, torch.tensor(PER_TD, device=dev)[slots % len(PER_TD)])
+    prio = buf.priorities.double()
+    _, fidx, fw = per_sample(buf, gen, PER_DRAWS)
+    host_w = (dq.buffer_capacity * prio[fidx] / prio.sum()) ** -0.4
+    host_w = host_w / host_w.max()
+    freq = torch.bincount(fidx % len(PER_TD), minlength=len(PER_TD)).double() / PER_DRAWS
+    share = torch.stack([prio[k::len(PER_TD)].sum() for k in range(len(PER_TD))]) / prio.sum()
+    sigma = torch.sqrt(share * (1 - share) / PER_DRAWS)
+    print(f"  PER: {PER_DRAWS} draws after priorities from |td| {list(PER_TD)}: frequencies "
+          f"{[round(float(f), 4) for f in freq]}, expected {[round(float(x), 4) for x in share]}; weights "
+          f"{float(fw.min()):.4f}..{float(fw.max()):.4f}, max off the host's "
+          f"{float((fw.double() - host_w).abs().max()):.2e}", flush=True)
+    if not (bool(((freq - share).abs() <= 5 * sigma).all()) and float((fw.double() - host_w).abs().max()) <= 1e-5
+            and float(fw.min()) < 0.5):
+        raise AssertionError("PER: the sample's frequencies or weights do not follow the priorities")
+    t0 = time.time()
+    batch, idx, wts = per_sample(buf, gen, dq.batch_size)
+    td = torch.randn(dq.batch_size, generator=gen, device=dev)
+    buf = per_update(buf, idx, td)
+    torch.cuda.synchronize()
+    print(f"  PER: {dq.buffer_capacity} adds in {add_s:.2f} s, one sample of {dq.batch_size} and its update in "
+          f"{time.time() - t0:.4f} s; weights {float(wts.min()):.4f}..{float(wts.max()):.4f}", flush=True)
+    expect = (torch.abs(td) + 1e-6) ** buf.alpha
+    last = {int(i): k for k, i in enumerate(idx.tolist())}
+    if not (float(wts.max()) == 1.0 and float(wts.min()) > 0 and bool((batch[2] == idx.float()).all())
+            and all(float(buf.priorities[i]) == float(expect[k]) for i, k in last.items())):
+        raise AssertionError("PER: the sample's items, weights or the updated priorities are wrong")
+    counts = {k.name: k.launches for k in build.KERNELS}
+    require_launches("ppo phase", counts, (), list(counts))
+    phase_memory("ppo", base)
+    return counts
+
+
+def run_beamforming(dev) -> dict:
+    """`train_beamforming` at its defaults (4 users x 4 antennas, batch 256,
+    episode 6, 300 steps: full depth) for seeds 0-2; the final rate (the
+    mean of the last 10) within JAX's seeds' range widened by SPREAD_MARGIN;
+    on a held-out batch the trained policy's mean rate at least MMSE's less
+    0.3 (`tests/test_beamforming.py:118-129`); ZF nulls interference, MMSE
+    beats ZF at low SNR, the relay's rates are finite and positive.
+    Returns the phase's launches."""
+    from rlsolver_tpu_torch.ops.kernels import build
+    from rlsolver_tpu_torch.problems import beamforming as bf
+
+    spec, cfg = bf.BeamformingSpec(), bf.BeamformingTrainConfig()
+    build.reset_counts()
+    finals, policy = [], None
+    for s in range(len(JAX_BEAMFORMING)):
+        times = []
+        pol, hist = bf.train_beamforming(spec, dataclasses.replace(cfg, seed=s), device=dev, timings=times)
+        finals.append(float(np.mean(hist[-10:])))
+        if policy is None:
+            policy = pol
+        print(f"  beamforming seed {s}: {cfg.num_steps} steps of batch {cfg.batch} x episode {cfg.episode_length}, "
+              f"{float(np.median(times)):.5f} s a step (median; first {times[0]:.3f} s); rate {hist[0]:.4f} -> "
+              f"{finals[-1]:.4f}", flush=True)
+        if not np.isfinite(hist).all():
+            raise AssertionError("beamforming: a rate is not finite")
+    within_spread("beamforming final rate (mean of the last 10 steps)", finals, JAX_BEAMFORMING)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    h = bf.random_channels(gen, spec, 128, device=dev)
+    with torch.no_grad():
+        w = bf.mmse_beamformer(h, spec)
+        r_mmse = float(bf.sum_rate(h, w, spec.noise_power).mean())
+        for _ in range(cfg.episode_length):
+            w = policy(h, w)
+        r_policy = float(bf.sum_rate(h, w, spec.noise_power).mean())
+        hw = torch.einsum("bkn,bnj->bkj", h, bf.zf_beamformer(h, spec))
+        off = float((hw - torch.diag_embed(torch.diagonal(hw, dim1=1, dim2=2))).abs().max())
+        low = bf.BeamformingSpec(total_power=1.0)
+        r_zf_low = float(bf.sum_rate(h, bf.zf_beamformer(h, low), low.noise_power).mean())
+        r_mmse_low = float(bf.sum_rate(h, bf.mmse_beamformer(h, low), low.noise_power).mean())
+        rspec = bf.RelaySpec()
+        g_r, h_r = bf.random_relay_channels(gen, rspec, 128, device=dev)
+        rates = bf.relay_sum_rate(h_r, bf.identity_relay(rspec, 128, device=dev), g_r, rspec)
+    print(f"  held-out 128 channels: policy {r_policy:.4f}, MMSE {r_mmse:.4f}; ZF's largest interference term "
+          f"{off:.2e}; at P = 1 MMSE {r_mmse_low:.4f}, ZF {r_zf_low:.4f}; relay (identity) mean rate "
+          f"{float(rates.mean()):.4f}", flush=True)
+    if not r_policy >= r_mmse - 0.3:
+        raise AssertionError(f"beamforming: the policy's {r_policy:.4f} is below MMSE's {r_mmse:.4f} less 0.3")
+    if not (off < 5e-2 and r_mmse_low >= r_zf_low - 1e-3):
+        raise AssertionError("beamforming: ZF does not null interference or MMSE is below ZF at low SNR")
+    if not (bool(torch.isfinite(rates).all()) and bool((rates > 0).all())):
+        raise AssertionError("beamforming: a relay rate is not finite and positive")
+    counts = {k.name: k.launches for k in build.KERNELS}
+    require_launches("beamforming phase", counts, (), list(counts))
+    return counts
 
 
 # HiGHS's time limits in the problems phase's CLI calls: maxcut's 5 s (its
@@ -2306,6 +2747,9 @@ def main() -> int:
     t0 = time.time()
     baseline_counts = run_baselines(dev, errs)
     phase("baselines", t0)
+    t0 = time.time()
+    tnco_counts, k3_tnco = run_tnco(dev, errs)
+    phase("tnco", t0)
 
     # Pattern I: ECO-DQN, S2V-DQN, Jumanji PPO, bench.py's pattern1 datum -------
     build.reset_counts()
@@ -2316,6 +2760,12 @@ def main() -> int:
     pattern_i_counts = {k.name: k.launches for k in build.KERNELS}
     print(f"  launches in eco, s2v, jumanji and pattern1: {pattern_i_counts} (no kernel of the port lies on "
           f"the Pattern I path: the MPNN's GEMMs and the env's elementwise ops are torch)", flush=True)
+    t0 = time.time()
+    run_ppo(dev)
+    phase("ppo", t0)
+    t0 = time.time()
+    run_beamforming(dev)
+    phase("beamforming", t0)
 
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
@@ -2336,10 +2786,10 @@ def main() -> int:
     import contextlib
     import io
     from rlsolver_tpu_torch.run import main as cli_main
-    for alg in ("sa", "isco", "ga"):
+    for alg, graph in (("sa", "BA_100_ID0"), ("isco", "BA_100_ID0"), ("ga", "BA_100_ID0"), ("vqe", VQE_GRAPH)):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            rc = cli_main(["--alg", alg, "--graphs", "BA_100_ID0"])
+            rc = cli_main(["--alg", alg, "--graphs", graph])
         print("  " + out.getvalue().strip(), flush=True)
         if rc != 0 or out.getvalue().count("obj=") != 1:
             raise AssertionError(f"CLI --alg {alg} failed ({rc}): {out.getvalue()}")
@@ -2598,6 +3048,9 @@ def main() -> int:
         k["baselines_launches"] = baseline_counts[k["name"]]
         k["runners_launches"] = runner_counts[k["name"]]
         k["pattern_i_launches"] = pattern_i_counts[k["name"]]
+        k["tnco_launches"] = tnco_counts[k["name"]]
+        if k["name"] == "mh_sample_fused":
+            k.update(k3_tnco)
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

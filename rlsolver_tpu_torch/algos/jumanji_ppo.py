@@ -27,6 +27,7 @@ from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv, SpinSystemParams
 from rlsolver_tpu_torch.models.mpnn import MPNN, Dense
+from rlsolver_tpu_torch.ops.sampling import gumbel_noise
 from rlsolver_tpu_torch.optim import ClippedAdam
 
 MASKED = -1e9  # the logit of a disallowed action
@@ -86,11 +87,6 @@ class PPODraws(NamedTuple):
     perms: torch.Tensor
 
 
-def _gumbel(shape, generator, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device)
-    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
-
-
 @torch.no_grad()
 def spin_rollout(net: nn.Module, env: SpinSystemEnv, pe: SpinSystemParams, generator=None,
                  draws: Optional[PPODraws] = None):
@@ -103,7 +99,7 @@ def spin_rollout(net: nn.Module, env: SpinSystemEnv, pe: SpinSystemParams, gener
         mask = env.allowed_action_mask(state)
         logits, value = net(obs, pe.adj)
         logits = torch.where(mask, logits, MASKED)
-        noise = _gumbel(logits.shape, generator, dev) if draws is None else draws.gumbel[t].to(dev)
+        noise = gumbel_noise(logits.shape, generator, dev) if draws is None else draws.gumbel[t].to(dev)
         actions = (noise + logits).argmax(dim=-1)
         logp = torch.log_softmax(logits, dim=-1).gather(1, actions[:, None])[:, 0]
         next_state, next_obs, rew, _ = env.step(pe, state, actions)
@@ -251,7 +247,7 @@ def evaluate_spin_policy(
         net = MPNNActorCritic(env.config.num_observables, c.features, c.n_layers, device=dev)
     for _ in range(env.max_steps):
         mask = env.allowed_action_mask(state)
-        rand = torch.where(mask, _gumbel(mask.shape, gen, dev), MASKED).argmax(dim=-1)
+        rand = torch.where(mask, gumbel_noise(mask.shape, gen, dev), MASKED).argmax(dim=-1)
         if params is None:
             actions = rand
         else:

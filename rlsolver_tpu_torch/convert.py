@@ -19,6 +19,11 @@ The JAX state arrives as numpy arrays (the caller converts with
     networks in `results_quality/eco_params_*.pkl`, loads without JAX
     (`load_flax_pickle`), and the MPNN's tree becomes its state dict
     (`mpnn_state_dict`);
+  * the flax trees of PPO's `MLPActorCritic`, the S2V constructive policy
+    and the beamforming `PrecoderPolicy` become their modules' state dicts
+    (`mlp_actor_critic_state_dict`, `s2v_state_dict`,
+    `precoder_state_dict`: the port keeps flax's names); TNCO's Bernoulli
+    logits go through `policy_state_dict`;
   * a flax `GCN` tree, or PI-GNN's `{"gcn": tree, "embed", "skip"}`,
     becomes the port's GCN state dict or PI-GNN parameter dict
     (`gcn_state_dict`).
@@ -132,3 +137,19 @@ def gcn_state_dict(params) -> Dict[str, torch.Tensor]:
     for k in ("embed", "skip"):
         out[k] = torch.from_numpy(np.array(params[k], np.float32))
     return out
+
+
+def mlp_actor_critic_state_dict(params) -> Dict[str, torch.Tensor]:
+    """PPO's flax `MLPActorCritic` tree -> the port's `algos.ppo.MLPActorCritic`."""
+    return flax_state_dict(params)
+
+
+def s2v_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The flax `S2VConstructivePolicy` tree -> the port's module
+    (`encoder.Dense_0.kernel`, ..., `dec_out.bias`)."""
+    return flax_state_dict(params)
+
+
+def precoder_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The flax `PrecoderPolicy` tree (`Dense_0` .. `Dense_2`) -> the port's."""
+    return flax_state_dict(params)

@@ -8,6 +8,8 @@
     the default (non `--fast`) sampler; `--fast` uses the packed kernels.
   * metropolis_bitflip_scan — the same proposals for a fixed number of
     rounds, no accept budget: `algos/mcpg_multi.py`'s `sampler="scan"`;
+  * gumbel_noise — standard Gumbel noise -log(-log(u)), the draw behind every
+    categorical sample of the port;
   * gumbel_topk — ISCO's no-replacement proposal: the top k of logits plus
     Gumbel noise (`methods/util.py:498-555` in RLSolver);
   * mh_accept — the Metropolis-Hastings accept mask u < exp(log_alpha);
@@ -31,14 +33,20 @@ def bernoulli_logp(probs: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.log(p), dim=-1)
 
 
+def gumbel_noise(shape, gen: Optional[torch.Generator], device=None, dtype=torch.float32) -> torch.Tensor:
+    """Gumbel(0, 1) noise of `shape` from `gen`: argmax(logits + noise) is
+    a categorical sample, as `jax.random.categorical` draws it."""
+    u = torch.rand(shape, generator=gen, device=device, dtype=dtype)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
 def gumbel_topk(gen: Optional[torch.Generator], logits: torch.Tensor, k: int,
                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Indices [.., k] of a size-k no-replacement sample ~ softmax(logits)
     [.., N]: the top k of logits + Gumbel(0, 1) noise, drawn from `gen`
     unless `gumbel` (shaped like logits) gives it."""
     if gumbel is None:
-        u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=logits.dtype)
-        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(logits.dtype).tiny)))
+        gumbel = gumbel_noise(logits.shape, gen, logits.device, logits.dtype)
     return torch.topk(logits + gumbel, k, dim=-1).indices
 
 

@@ -1,6 +1,9 @@
 """The JAX package's optimizer, `optax.chain(optax.clip_by_global_norm(1.0),
 optax.adam(lr))`, written out so that it follows optax step for step; with
-`max_norm=None` it is a plain `optax.adam(lr)` (L2A's pretraining).
+`max_norm=None` it is a plain `optax.adam(lr)` (L2A's pretraining). With
+`schedule_steps=T` the step size follows `optax.linear_schedule(lr, 0, T)`
+over optax's update count c = 0, 1, ...: lr (1 - min(c, T) / T), in f32
+(PPO's annealed learning rate).
 
 Two places where the torch built-ins differ from optax:
   * optax scales the gradients by max_norm / norm only when norm >= max_norm;
@@ -14,18 +17,21 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 
 class ClippedAdam:
     """Global-norm clipping (none when `max_norm` is None), then Adam, on a
     list of parameters (their .grad; a parameter without one counts as a
-    zero gradient, as in JAX)."""
+    zero gradient, as in JAX); a fixed step size `lr` unless `schedule_steps`
+    anneals it linearly to 0."""
 
     def __init__(self, params, lr: float, max_norm: Optional[float] = 1.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, schedule_steps: Optional[int] = None):
         self.params: List[torch.nn.Parameter] = list(params)
         self.lr, self.max_norm, self.b1, self.b2, self.eps = lr, max_norm, b1, b2, eps
+        self.schedule_steps = schedule_steps
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
@@ -41,6 +47,10 @@ class ClippedAdam:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             if not bool(g_norm < self.max_norm):
                 grads = [(g / g_norm) * self.max_norm for g in grads]
+        lr = self.lr
+        if self.schedule_steps is not None:
+            steps = np.float32(self.schedule_steps)
+            lr = float(np.float32(self.lr) * (np.float32(1.0) - np.float32(min(self.count, self.schedule_steps)) / steps))
         self.count += 1
         count = torch.tensor(self.count, dtype=torch.float32)
         c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
@@ -49,7 +59,7 @@ class ClippedAdam:
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / c1.to(mu.device)) / (torch.sqrt(nu / c2.to(nu.device)) + self.eps)
-            p.add_(-self.lr * update)
+            p.add_(-lr * update)
 
     def state_dict(self) -> Dict[str, object]:
         return {"count": self.count, "mu": [m.clone() for m in self.mu], "nu": [v.clone() for v in self.nu]}

@@ -2,7 +2,7 @@
 over the problem, algorithm and instance axes.
 
   maxcut               mcpg, l2a, local_search, greedy, sa, ga, random_walk,
-                       sdp, bls, isco, pignn, milp (HiGHS)
+                       sdp, bls, isco, pignn, milp (HiGHS), vqe (n <= 16)
   mis                  greedy, isco, milp
   mvc                  greedy, milp
   graph_partitioning   greedy, milp
@@ -138,6 +138,13 @@ def _pignn(graph: Graph, seed: int, opts: Options):
     return solve_maxcut_pignn(graph, PIGNNConfig(seed=seed), device=opts.device)
 
 
+def _vqe(graph: Graph, seed: int, opts: Options):
+    from rlsolver_tpu_torch.solvers.vqe import VQEConfig, vqe_maxcut
+
+    bits, cut, _ = vqe_maxcut(graph, VQEConfig(seed=seed), device=opts.device)
+    return bits, cut
+
+
 def _mis_isco(graph: Graph, seed: int, opts: Options):
     from rlsolver_tpu_torch.algos.isco import ISCOConfig, solve_mis_isco
 
@@ -222,7 +229,7 @@ def _knapsack_solvers() -> Dict[str, Solver]:
 
 SOLVERS: Dict[str, Solver] = {"mcpg": _mcpg, "local_search": _local_search, "l2a": _l2a, "greedy": _greedy,
                               "sa": _sa, "ga": _ga, "random_walk": _random_walk, "sdp": _sdp, "bls": _bls,
-                              "isco": _isco, "pignn": _pignn, "milp": _milp}
+                              "isco": _isco, "pignn": _pignn, "milp": _milp, "vqe": _vqe}
 PORTED_ALGS = tuple(SOLVERS)
 INSTANCE_PROBLEMS = ("set_cover", "knapsack")  # instance files of their own, not graphs
 PROBLEMS = ("maxcut", "mis", "mvc", "graph_partitioning", "graph_coloring") + INSTANCE_PROBLEMS
