@@ -169,9 +169,10 @@ Phases (each prints its seconds; any failure exits non-zero):
                the RandomWalk column's 234.8, printed beside the JAX run's
                (within 2% expected, not enforced) (`run_s2v`);
      jumanji — `train_spin_ppo` at scripts/quality_table.py:171-227's protocol
-               on BA_100 at full depth (128 envs x 200 steps, 100 iterations),
-               then `make_greedy_evaluator` at 64 envs on BA_100_ID0..9, with
-               the s2v phase's checks (`run_jumanji`);
+               on BA_100 (128 envs x 200 steps), its 100 iterations cut to
+               JUMANJI_ITERS = 30 to leave room for the tsp and l2o phases,
+               then `make_greedy_evaluator` at 64 envs on BA_100_ID0..9,
+               with the s2v phase's checks (`run_jumanji`);
      pattern1 — bench.py:38-268's `pattern1_peco` on the port (BA_800_ID0,
                MPNN(64, 3), env counts 512-4096 through `find_best_num_sims`,
                the env-only twin, the host CPU twin, DQN train steps/s; then
@@ -216,13 +217,45 @@ Phases (each prints its seconds; any failure exits non-zero):
                a held-out batch, ZF nulling interference, MMSE at least ZF at
                low SNR, the relay's rates finite and positive
                (`run_beamforming`);
+     tsp     — the TSP axis (`run_tsp`; no kernel on its path): POMO at
+               POMOConfig's widths (embed 128, 4 heads, 3 layers, batch 64,
+               TSP20, 200 steps; seed 0, TSP_PORT_SEEDS), x8 greedy inference
+               on generate_tsp_coords(128, 20, seed=20) (every tour a
+               permutation, every length its float64 re-score), the mean within
+               the JAX package's CPU seeds 0-2's range (JAX_POMO) widened by
+               their spread, an lr = 0 control (its parameters checked unmoved)
+               outside it, the device time of one training step; a width-4 beam search; a sampled rollout and x8
+               inference at TSP100 (batch 64, P = 100), timed; TSPEnv.anneal
+               at its defaults (5000 steps) on 1024 random tours of the TSP100
+               instance generate_tsp_coords(1, 100, seed=100), then
+               two_opt_descent (both replayed as CUDA graphs of 100 steps,
+               held equal to the eager loops bit for bit over a 200-step
+               window), the best lengths' float64 re-scores within JAX's seeds
+               0-2's range widened by their spread, the window profiled
+               eager; 3-opt, or-opt, tabu search and the GA there,
+               each no longer than its start; the CLI's --problem tsp with nn,
+               christofides, karp_steele and cheapest_insertion on that
+               instance and on generate_tsp_coords(1, 1000, seed=1000), written
+               as .tsp files, each length equal to JAX's CPU run's within 1e-4
+               (JAX_TSP_CLI); train_reinforce with the rollout baseline (40
+               steps, at least one t-test swap) and with the S2V maxcut adapter
+               on BA_100 (30 steps; greedy cuts equal to their host re-scores),
+               every loss finite; peak memory;
+     l2o     — `--alg seq2seq` and `--alg l2o` through the CLI in this process
+               on BA_100_ID0 at their default configs, seeds 0-2, each mean at
+               least JAX's less 1%; RUN-CSP's maxcut language trained on
+               BA_100_ID0..3 and boosted (8 starts) on each, seeds 0-9, the
+               mean at least JAX's over the same seeds less 1%; DCS at its
+               defaults, seeds 0-2, the mean recovery error within JAX's range
+               widened by its spread, every untrained error above it
+               (`run_l2o`; the JAX numbers come from
+               scripts/jax_tsp_l2o_reference.py);
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
-               and on W22-like written as a gset file, and `--alg l2a` and
-               `--alg local_search` on BA_100_ID0 with and without `--fast`;
-               then the CLI's `main` in this process with `--alg sa`,
-               `--alg isco` and `--alg ga` on BA_100_ID0 and `--alg vqe` on
-               BA_16_ID0 (each re-scored by the CLI, which raises on a
-               mismatch);
+               and on W22-like written as a gset file; then the CLI's `main`
+               in this process with `--alg l2a` and `--alg local_search` on
+               BA_100_ID0 with and without `--fast`, `--alg sa`, `--alg isco`
+               and `--alg ga` on BA_100_ID0 and `--alg vqe` on BA_16_ID0 (each
+               re-scored by the CLI, which raises on a mismatch);
  10. time    — kernel, plain-version and bound times at each path's shapes
                (K7's with its transposes; K8a on D2000-like, the d2000
                phase's graph and chains), K6 on G22-like's own lists beside
@@ -867,6 +900,7 @@ ECO_PKL = os.path.join(REPO, "results_quality", "eco_params_BA.pkl")
 ECO_IDS = {100: 10, 1000: 4}
 ECO_LIMITS = {100: 280.4}  # each size's mean: at least the JAX run's mean less 1% (BA_1000: over the same ids)
 ECO_PROFILE_STEPS = 100
+JUMANJI_ITERS = 30  # depth cut from quality_table.py's 100 iterations: room for the tsp and l2o phases
 RANDOM_WALK_BA100 = 234.8  # DIST_TABLE's RandomWalk column, BA_100
 P1_NODES, P1_BLOCK, P1_BLOCKS = 800, 32, 8  # bench.py's pattern1_peco: BA_800_ID0, blocks of 32 steps
 P1_CANDIDATES = (512, 1024, 2048, 4096)
@@ -983,11 +1017,11 @@ def run_s2v(dev, steps: int = 6144) -> None:
     phase_memory("s2v", base)
 
 
-def run_jumanji(dev, iters: int = 100) -> None:
+def run_jumanji(dev, iters: int = JUMANJI_ITERS) -> None:
     """Jumanji PPO at scripts/quality_table.py:171-227's protocol on BA_100:
     train_spin_ppo on generate_graph(BA, 100, seed=91000), 128 envs, 200
-    steps, 100 iterations, then make_greedy_evaluator at 64 envs on
-    BA_100_ID0..9."""
+    steps, `iters` iterations (the protocol's 100 cut to JUMANJI_ITERS),
+    then make_greedy_evaluator at 64 envs on BA_100_ID0..9."""
     from rlsolver_tpu_torch.algos.jumanji_ppo import MPNNActorCritic, SpinPPOConfig, make_greedy_evaluator, train_spin_ppo
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import generate_graph, graph_from_name
@@ -2058,6 +2092,383 @@ def run_beamforming(dev) -> dict:
     return counts
 
 
+# The JAX package's CPU runs (scripts/jax_tsp_l2o_reference.py, seeds 0-2)
+# that the tsp and l2o phases hold the port to
+JAX_POMO = (3.8644871711730957, 3.853501796722412, 3.860985517501831)  # x8 greedy mean on the eval set
+JAX_POMO_UNTRAINED = (5.545351505279541, 5.428628444671631, 5.644775867462158)
+JAX_TSP_ANNEAL = (8.047772506160845, 8.155059123970908, 7.898277617060631)
+JAX_TSP_DESCENT = (7.841009942225851, 7.860534821076381, 7.698661947676009)
+JAX_TSP_CLI = {"nn_100": 7.872507095336914, "christofides_100": 8.252485275268555,
+               "karp_steele_100": 8.58851146697998, "cheapest_insertion_100": 8.662101745605469,
+               "nn_1000": 24.665048599243164, "christofides_1000": 23.73930549621582,
+               "karp_steele_1000": 25.321481704711914, "cheapest_insertion_1000": 26.16327476501465}
+JAX_SEQ2SEQ = (230.0, 232.0, 229.0)  # BA_100_ID0
+JAX_L2O = (265.0, 266.0, 263.0)
+# RUN-CSP, seeds 0-9: boosted cuts on BA_100_ID0..3 after training on them
+# (ten seeds: the seeds' means spread over 273.75-277.0)
+JAX_RUNCSP = ((273, 277, 279, 276), (271, 279, 276, 274), (276, 279, 280, 271), (275, 278, 281, 274),
+              (275, 277, 275, 268), (270, 277, 277, 272), (275, 275, 279, 272), (271, 279, 278, 270),
+              (272, 278, 275, 273), (270, 275, 279, 272))
+JAX_DCS = (2.4407103061676025, 2.2469770908355713, 2.3963475227355957)
+JAX_DCS_UNTRAINED = (4.615262031555176, 4.2988715171813965, 4.393608093261719)  # before training
+TSP_EVAL = (128, 20)  # POMO's eval set: generate_tsp_coords(128, 20, seed=20)
+TSP_SEEDS = {100: 100, 1000: 1000}  # the CLI's instances: generate_tsp_coords(1, n, seed)
+TSP_CHAINS = 1024
+TSP_PROFILE_STEPS = 200
+TSP_PORT_SEEDS = (0,)  # POMO's and the annealer's runs on the card, each held to JAX's seeds 0-2
+POMO_CONTROL_STEPS = 20  # the lr = 0 control's steps (its parameters do not move)
+REINFORCE_STEPS = {"tsp": 40, "s2v": 30}  # of ReinforceConfig's 100: two t-test epochs, for room
+RUNCSP_TRAIN = 4  # RUN-CSP trains on BA_100_ID0..3 and is boosted on each
+RUNCSP_PORT_SEEDS = range(10)  # the seeds of JAX_RUNCSP
+
+
+def spread_margin(jax_values) -> float:
+    """The JAX seeds' own spread (max - min): a mean within their range
+    widened by it on both sides is a draw of the same distribution."""
+    return float(max(jax_values) - min(jax_values))
+
+
+def check_tours(label: str, tours, lengths, dist, rel: float = 1e-4) -> np.ndarray:
+    """Every tour [B, N] a permutation; each length its float64 host re-score
+    within `rel` relative (f32 sums on the card). Returns the re-scores."""
+    from rlsolver_tpu_torch.problems.objectives import obj_tsp
+    tours = np.asarray(tours.cpu() if torch.is_tensor(tours) else tours)
+    lengths = np.asarray(lengths.detach().cpu() if torch.is_tensor(lengths) else lengths, np.float64).reshape(-1)
+    n = tours.shape[-1]
+    if not (np.sort(tours, axis=-1) == np.arange(n)).all():
+        raise AssertionError(f"{label}: a tour is not a permutation of the {n} cities")
+    dists = dist if isinstance(dist, list) else [dist] * len(tours)
+    host = np.array([-obj_tsp(t, d) for t, d in zip(tours, dists)])
+    err = float(np.max(np.abs(host - lengths) / host))
+    if not err <= rel:
+        raise AssertionError(f"{label}: lengths differ from their float64 re-scores by {err:.2e} (> {rel})")
+    return host
+
+
+def run_tsp(dev) -> dict:
+    """The TSP axis: POMO at POMOConfig's widths (embed 128, 4 heads, 3
+    layers, batch 64, TSP20, 200 steps) for TSP_PORT_SEEDS, x8 greedy
+    inference on generate_tsp_coords(128, 20, seed=20) within JAX's seeds
+    0-2's range widened by their spread, an lr = 0 control (its parameters
+    equal to the start's) outside it; a sampled rollout and x8 inference at TSP100 (P = 100,
+    batch 64) and a width-4 beam search, timed; TSPEnv.anneal at its
+    defaults (5000 steps) on 1024 random tours of the TSP100 instance, then
+    two_opt_descent, against JAX's seeds 0-2; 3-opt, or-opt, tabu search and
+    the GA there, each no longer than its start; the CLI's four --problem
+    tsp algorithms on the TSP100 and TSP1000 files, each equal to JAX's CPU
+    length within 1e-4; train_reinforce with the rollout baseline (at least
+    one t-test swap) and with the S2V maxcut adapter on BA_100 (steps cut as
+    REINFORCE_STEPS). No kernel is on this path. Returns the launches."""
+    import contextlib
+    import io
+    from rlsolver_tpu_torch.algos import am_pomo as ap
+    from rlsolver_tpu_torch.algos import reinforce_baselines as rb
+    from rlsolver_tpu_torch.classical import tsp as ct
+    from rlsolver_tpu_torch.core.generate import generate_tsp_coords
+    from rlsolver_tpu_torch.core.io import tsp_distance_matrix
+    from rlsolver_tpu_torch.envs.tsp import GRAPH_CHUNK, TSPDraws, TSPEnv
+    from rlsolver_tpu_torch.ops.kernels import build
+    from rlsolver_tpu_torch.ops.sampling import gumbel_noise
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut, obj_tsp
+    from rlsolver_tpu_torch.run import main as cli_main
+
+    build.reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ap.POMOConfig()
+    nodes = ap.eval_nodes(*TSP_EVAL, seed=TSP_EVAL[1], device=dev)
+    d20 = [tsp_distance_matrix(c) for c in generate_tsp_coords(*TSP_EVAL, seed=TSP_EVAL[1])]
+
+    def pomo_eval(model, label):
+        tours, lengths = ap.infer_pomo(model, nodes)
+        return float(check_tours(label, tours, lengths, d20).mean())
+
+    finals, model0 = [], None
+    for s in TSP_PORT_SEEDS:
+        times = []
+        model, hist = ap.train_pomo(dataclasses.replace(cfg, seed=s), device=dev, timings=times)
+        if not np.isfinite([h["loss"] for h in hist]).all():
+            raise AssertionError("POMO: a loss is not finite")
+        finals.append(pomo_eval(model, f"POMO seed {s}"))
+        model0 = model if model0 is None else model0
+        print(f"  POMO seed {s}: {cfg.num_steps} steps of batch {cfg.batch_size} x {cfg.num_cities} starts, "
+              f"{float(np.median(times)):.4f} s a step (median; first {times[0]:.3f} s); mean length "
+              f"{hist[0]['mean_length']:.4f} -> {hist[-1]['mean_length']:.4f}; x8 greedy {finals[-1]:.4f}", flush=True)
+    within_spread("POMO x8 greedy mean length (TSP20 eval set)", finals, JAX_POMO, spread_margin(JAX_POMO))
+    # an lr = 0 run leaves the parameters where they start (Adam's step is -0
+    # times the update), whatever its length: POMO_CONTROL_STEPS steps, the
+    # parameters checked equal to the start's bit for bit
+    control, _ = ap.train_pomo(dataclasses.replace(cfg, lr=0.0, num_steps=POMO_CONTROL_STEPS), device=dev)
+    start = ap.AttentionTSP(cfg.embed_dim, cfg.num_heads, cfg.num_layers, seed=cfg.seed, device=dev).state_dict()
+    if not all(torch.equal(v, start[k]) for k, v in control.state_dict().items()):
+        raise AssertionError("POMO: an lr = 0 run moved the parameters")
+    ctrl = pomo_eval(control, "POMO lr = 0")
+    lo, hi = min(JAX_POMO) - spread_margin(JAX_POMO), max(JAX_POMO) + spread_margin(JAX_POMO)
+    print(f"  POMO lr = 0 control: {ctrl:.4f} (JAX at its seeds' initial parameters {JAX_POMO_UNTRAINED})", flush=True)
+    if lo <= ctrl <= hi:
+        raise AssertionError(f"POMO: the lr = 0 control {ctrl:.4f} lies inside [{lo:.4f}, {hi:.4f}]")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    draws = [ap.POMODraws(torch.rand(cfg.batch_size, cfg.num_cities, 2, generator=gen, device=dev),
+                          gumbel_noise((cfg.num_cities - 1, cfg.batch_size, cfg.num_cities, cfg.num_cities), gen, dev))
+             for _ in range(3)]
+    models, steps = [], []
+    for graphed in (True, False):  # three steps as CUDA graph replays and eagerly, from one start
+        models.append(ap.AttentionTSP(cfg.embed_dim, cfg.num_heads, cfg.num_layers, seed=cfg.seed, device=dev))
+        steps.append(ap.make_pomo_step(models[-1], cfg, cuda_graph=graphed)[1])
+        for d in draws:
+            steps[-1](draws=d)
+    if not all(torch.equal(v, models[1].state_dict()[k]) for k, v in models[0].state_dict().items()):
+        raise AssertionError("POMO: the CUDA graph's training steps differ from the eager ones")
+    print("  POMO: 3 training steps as CUDA graph replays equal the eager steps bit for bit", flush=True)
+    for label, st in (("one POMO training step (TSP20, batch 64), a CUDA graph replay", steps[0]),
+                      ("one POMO training step, eager", steps[1])):
+        profile_device(label, lambda: st(gen))
+    with torch.no_grad():
+        tours, lengths = ap.beam_search(model0, nodes, beam_width=4)
+    beam = check_tours("beam search", tours, lengths, d20)
+    nodes100 = ap.eval_nodes(64, 100, seed=100, device=dev)
+    d100s = [tsp_distance_matrix(c) for c in generate_tsp_coords(64, 100, seed=100)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        acts, _, lens = ap.rollout_pomo(model0, nodes100, gen=gen)
+    torch.cuda.synchronize()
+    t_roll = time.time() - t0
+    check_tours("TSP100 sampled rollout", acts.reshape(-1, 100), lens, [d for d in d100s for _ in range(100)])
+    t0 = time.time()
+    tours, lengths = ap.infer_pomo(model0, nodes100)
+    t_x8 = time.time() - t0
+    x8 = check_tours("TSP100 x8 inference", tours, lengths, d100s)
+    print(f"  beam search (width 4, TSP20 eval set): mean {beam.mean():.4f}; TSP100 (batch 64, P = 100): a sampled "
+          f"rollout {t_roll:.3f} s (mean {float(lens.mean()):.4f}), x8 greedy inference {t_x8:.3f} s (mean "
+          f"{x8.mean():.4f})", flush=True)
+
+    dist = tsp_distance_matrix(generate_tsp_coords(1, 100, seed=TSP_SEEDS[100])[0])
+    env = TSPEnv(dist, device=dev)
+    best_a, best_d = [], []
+    for s in TSP_PORT_SEEDS:
+        g = torch.Generator(device=dev)
+        g.manual_seed(s)
+        tours = env.random_tours(g, TSP_CHAINS)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        bt, bl = env.anneal(tours, gen=g)
+        b = int(bl.argmin())
+        # the chains' lengths add up 5000 f32 deltas: re-scored within 1e-3
+        best_a.append(float(check_tours(f"anneal seed {s}", bt[b:b + 1], bl[b:b + 1], dist, 1e-3)[0]))
+        t_a = time.time() - t0
+        t0 = time.time()
+        dt, dl = env.two_opt_descent(bt, gen=g)
+        b = int(dl.argmin())
+        best_d.append(float(check_tours(f"descent seed {s}", dt[b:b + 1], dl[b:b + 1], dist, 1e-3)[0]))
+        print(f"  TSPEnv seed {s}: anneal of {TSP_CHAINS} chains x 5000 steps {t_a:.2f} s ({1e3 * t_a / 5000:.3f} ms "
+              f"a step), best {best_a[-1]:.6f}; two_opt_descent {time.time() - t0:.2f} s, best {best_d[-1]:.6f}",
+              flush=True)
+    within_spread("TSPEnv.anneal best length (TSP100)", best_a, JAX_TSP_ANNEAL, spread_margin(JAX_TSP_ANNEAL))
+    within_spread("two_opt_descent best length (TSP100)", best_d, JAX_TSP_DESCENT, spread_margin(JAX_TSP_DESCENT))
+    window = env.draw(gen, TSP_PROFILE_STEPS, TSP_CHAINS, accept=True)
+    descent_window = TSPDraws(*window[:4])
+    for label, run in (("anneal", lambda graphed: env.anneal(tours, TSP_PROFILE_STEPS, draws=window,
+                                                             cuda_graph=graphed)),
+                       ("descent", lambda graphed: env.two_opt_descent(tours, TSP_PROFILE_STEPS, draws=descent_window,
+                                                                       cuda_graph=graphed))):
+        graphed, eager = run(True), run(False)
+        if not all(torch.equal(a, b) for a, b in zip(graphed, eager)):
+            raise AssertionError(f"TSPEnv {label}: the CUDA graph replay differs from the eager loop")
+    print(f"  TSPEnv: {TSP_PROFILE_STEPS} anneal and descent steps as CUDA graphs of {GRAPH_CHUNK} steps equal the "
+          f"eager loops bit for bit", flush=True)
+    profile_device(f"a {TSP_PROFILE_STEPS}-step anneal window ({TSP_CHAINS} chains), eager",
+                   lambda: env.anneal(tours, TSP_PROFILE_STEPS, draws=window, cuda_graph=False))
+
+    starts = env.random_tours(gen, 64)
+    start_l = check_tours("random starts", starts, env.tour_length(starts), dist)
+    torch.cuda.synchronize()
+    nn_tour = ct.nearest_neighbor_tour(dist)
+    t0 = time.time()
+    t3, l3 = ct.three_opt_tour(dist, nn_tour)
+    t_3 = time.time() - t0
+    check_tours("3-opt", t3[None], [l3], dist)
+    t0 = time.time()
+    to, lo_ = ct.or_opt_moves(starts, env.dist, gen=gen)
+    torch.cuda.synchronize()
+    t_or = time.time() - t0
+    ho = check_tours("or-opt", to, lo_, dist)
+    t0 = time.time()
+    tt, lt = ct.tabu_search(starts, env.dist)
+    torch.cuda.synchronize()
+    t_tabu = time.time() - t0
+    ht = check_tours("tabu search", tt, lt, dist)
+    t0 = time.time()
+    tg, lg = ct.genetic_tsp(dist, seed=0, device=dev)
+    t_ga = time.time() - t0
+    check_tours("GA", tg[None], [lg], dist)
+    rng = np.random.RandomState(0)
+    ga_start = min(-obj_tsp(rng.permutation(100), dist) for _ in range(64))  # the GA's first population
+    nn_len = -obj_tsp(nn_tour, dist)
+    if not (l3 <= nn_len + 1e-9 and (ho <= start_l + 1e-6).all() and (ht <= start_l + 1e-6).all()
+            and lg <= ga_start + 1e-9):
+        raise AssertionError("TSP: an improver returned a tour longer than its start")
+    print(f"  3-opt from NN {nn_len:.4f} -> {l3:.4f} in {t_3:.2f} s; or-opt (64 tours, 200 moves) mean "
+          f"{start_l.mean():.4f} -> {ho.mean():.4f} in {t_or:.2f} s; tabu (64 tours, 100 iterations) -> "
+          f"{ht.mean():.4f} in {t_tabu:.2f} s; GA (64 x 100 generations) {ga_start:.4f} -> {lg:.4f} in "
+          f"{t_ga:.2f} s", flush=True)
+
+    with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
+        for n, seed in TSP_SEEDS.items():
+            with open(os.path.join(data_dir, f"rand{n}.tsp"), "w") as f:
+                f.writelines(f"{i + 1} {x!r} {y!r}\n" for i, (x, y) in enumerate(
+                    generate_tsp_coords(1, n, seed=seed)[0].tolist()))
+        for alg in ("nn", "christofides", "karp_steele", "cheapest_insertion"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["--problem", "tsp", "--alg", alg, "--data-dir", data_dir])
+            lines = out.getvalue().strip().splitlines()
+            print("  " + "\n  ".join(lines), flush=True)
+            if rc != 0 or len(lines) != len(TSP_SEEDS):
+                raise AssertionError(f"CLI --problem tsp --alg {alg} failed ({rc})")
+            for line in lines:
+                n = int(line.split("rand")[1].split(".tsp")[0])
+                length, ref = float(line.split("length=")[1].split()[0]), JAX_TSP_CLI[f"{alg}_{n}"]
+                if not abs(length - ref) <= 1e-4 * ref:
+                    raise AssertionError(f"CLI tsp {alg} on TSP{n}: {length} but JAX's CPU run gives {ref}")
+
+    rcfg = rb.ReinforceConfig(num_steps=REINFORCE_STEPS["tsp"])
+    bl = rb.get_reinforce_baseline("rollout", eval_nodes=ap.eval_nodes(256, rcfg.num_cities, seed=21, device=dev))
+    times = []
+    _, hist, state = rb.train_reinforce(bl, rcfg, device=dev, timings=times)
+    if not (np.isfinite(hist["mean_length"]).all() and np.isfinite(hist["loss"]).all()) or state.swaps < 1:
+        raise AssertionError(f"REINFORCE (rollout baseline): lengths and losses finite "
+                             f"{np.isfinite(hist['mean_length'] + hist['loss']).all()}, {state.swaps} t-test swaps (at "
+                             f"least 1 needed)")
+    print(f"  REINFORCE, rollout baseline (TSP20, {rcfg.num_steps} steps): {float(np.median(times)):.4f} s a step; "
+          f"mean length {hist['mean_length'][0]:.4f} -> {hist['mean_length'][-1]:.4f}, loss {hist['loss'][0]:.4f} -> "
+          f"{hist['loss'][-1]:.4f}; {state.swaps} t-test swaps, frozen policy's held-out mean reward "
+          f"{state.frozen_mean:.4f}", flush=True)
+    scfg = rb.ReinforceConfig(embed_dim=64, num_layers=2, num_steps=REINFORCE_STEPS["s2v"])
+    adapter = rb.S2VMaxcutAdapter(scfg, num_nodes=100, device=dev)
+    times = []
+    model, hist, _ = rb.train_reinforce(rb.get_reinforce_baseline("exponential"), scfg, adapter=adapter, timings=times)
+    xs, _, cuts = adapter.rollout(model, adapter.pool()[:10], greedy=True)
+    from rlsolver_tpu_torch.config import GraphType
+    from rlsolver_tpu_torch.core.generate import generate_graph
+    host = [obj_maxcut(x.cpu().numpy().astype(np.int64), generate_graph(GraphType.BA, 100, seed=i))
+            for i, x in enumerate(xs)]
+    finite = bool(np.isfinite(hist["mean_reward"] + hist["loss"]).all())
+    if not finite or host != cuts.tolist():
+        raise AssertionError(f"REINFORCE S2V: rewards and losses finite {finite}, cuts {cuts.tolist()} against host "
+                             f"re-scores {host}")
+    print(f"  REINFORCE, S2V maxcut on BA_100 ({scfg.num_steps} steps, exponential baseline): "
+          f"{float(np.median(times)):.4f} s a step; mean cut {hist['mean_reward'][0]:.2f} -> "
+          f"{hist['mean_reward'][-1]:.2f}; greedy cuts on the pool's first 10 {host}", flush=True)
+    phase_memory("tsp", base)
+    counts = {k.name: k.launches for k in build.KERNELS}
+    require_launches("tsp phase", counts, (), list(counts))
+    return counts
+
+
+def run_l2o(dev) -> dict:
+    """seq2seq and L2O through the CLI in this process (`--alg seq2seq|l2o`
+    on BA_100_ID0, their default configs, seeds 0-2; each cut re-scored by
+    the CLI), their means at least JAX's less 1%; RUN-CSP's maxcut language
+    trained on BA_100_ID0..3 and boosted (8 starts) on each (seeds 0-9),
+    every cut its host re-score, the mean over seeds and instances at least
+    that of JAX's same seeds less 1%; DCS at its defaults, seeds 0-2, the
+    mean recovery error within JAX's range widened by its spread, and the
+    untrained errors (the port's and JAX's) above that band. No kernel is on
+    this path. Returns the launches."""
+    import contextlib
+    import io
+    from rlsolver_tpu_torch.algos import dcs, l2o, runcsp
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.ops.kernels import build
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+    from rlsolver_tpu_torch.run import main as cli_main
+
+    build.reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for alg, ref in (("seq2seq", JAX_SEQ2SEQ), ("l2o", JAX_L2O)):
+        cuts, secs = [], []
+        for s in range(len(ref)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["--alg", alg, "--graphs", "BA_100_ID0", "--seed", str(s)])
+            line = out.getvalue().strip()
+            if rc != 0 or line.count("obj=") != 1:
+                raise AssertionError(f"CLI --alg {alg} --seed {s} failed ({rc}): {line}")
+            cuts.append(float(line.split("obj=")[1].split()[0]))
+            secs.append(float(line.split("time=")[1].split("s")[0]))
+        print(f"  --alg {alg} on BA_100_ID0, seeds 0-2: cuts {cuts} in {secs} s; JAX {list(ref)}", flush=True)
+        if not np.mean(cuts) >= 0.99 * np.mean(ref):
+            raise AssertionError(f"{alg}: mean cut {np.mean(cuts):.2f} below JAX's {np.mean(ref):.2f} less 1%")
+    g100 = graph_from_name("BA_100_ID0")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    starts = l2o.L2ODraws(torch.rand(3, 64, 100, generator=gen, device=dev))
+    runs = []
+    for graphed in (True, False):  # 3 L2O epochs as CUDA graph replays and eagerly, from one start
+        model = l2o.SolverLSTM(100, 256, seed=0, device=dev)
+        runs.append((l2o.solve_maxcut_l2o(g100, l2o.L2OConfig(num_epochs=3), device=dev, model=model, draws=starts,
+                                          cuda_graph=graphed)[2], model.state_dict()))
+    if runs[0][0] != runs[1][0] or not all(torch.equal(v, runs[1][1][k]) for k, v in runs[0][1].items()):
+        raise AssertionError("L2O: the CUDA graph's epochs differ from the eager ones")
+    lang = runcsp.ConstraintLanguage.maxcut()
+    graphs = [graph_from_name(f"BA_100_ID{i}") for i in range(RUNCSP_TRAIN)]
+    insts = [runcsp.CSPInstance.from_graph(g, lang, "NEQ") for g in graphs]
+    solver = runcsp.RunCspSolver(lang, dataclasses.replace(runcsp.RunCspConfig(), epochs=1), device=dev)
+    h0s = [solver.initial_state(100, gen) for _ in insts]
+    runs = [solver.train(insts, h0s=h0s, cuda_graph=graphed) for graphed in (True, False)]
+    if runs[0][1] != runs[1][1] or not all(torch.equal(v, runs[1][0][k]) for k, v in runs[0][0].items()):
+        raise AssertionError("RUN-CSP: the CUDA graph's steps differ from the eager ones")
+    print("  L2O (3 epochs) and RUN-CSP (4 steps) as CUDA graph replays equal the eager runs bit for bit", flush=True)
+    cuts = []
+    for s in RUNCSP_PORT_SEEDS:
+        t0 = time.time()
+        solver = runcsp.RunCspSolver(lang, runcsp.RunCspConfig(seed=s), device=dev)
+        params, hist = solver.train(insts)
+        t_train = time.time() - t0
+        t0 = time.time()
+        seed_cuts = []
+        for inst, g in zip(insts, graphs):
+            assignment, conflicts = solver.boosted_predict(params, inst)
+            seed_cuts.append(inst.num_clauses - conflicts)
+            if obj_maxcut(assignment.astype(np.int64), g) != seed_cuts[-1] or not np.isfinite(hist).all():
+                raise AssertionError(f"RUN-CSP seed {s}: cut {seed_cuts[-1]} is not its host re-score, or a loss is "
+                                     f"not finite")
+        cuts.append(seed_cuts)
+        print(f"  RUN-CSP seed {s}: {solver.cfg.epochs} epochs x {RUNCSP_TRAIN} instances in {t_train:.2f} s; loss "
+              f"{hist[0]:.3f} -> {hist[-1]:.3f}; boosted cuts on BA_100_ID0..{RUNCSP_TRAIN - 1} {seed_cuts} in "
+              f"{time.time() - t0:.2f} s", flush=True)
+    print(f"  RUN-CSP seeds 0-9: cuts by seed {[float(np.mean(c)) for c in cuts]} (mean {np.mean(cuts):.2f}); JAX's "
+          f"{[float(np.mean(c)) for c in JAX_RUNCSP]} (mean {np.mean(JAX_RUNCSP):.2f})", flush=True)
+    if not np.mean(cuts) >= 0.99 * np.mean(JAX_RUNCSP):
+        raise AssertionError(f"RUN-CSP: mean cut {np.mean(cuts):.2f} below JAX's {np.mean(JAX_RUNCSP):.2f} less 1%")
+    errs, untrained = [], []
+    for s in range(len(JAX_DCS)):
+        times = []
+        model = dcs.DCS(dcs.DCSConfig(seed=s), device=dev)
+        untrained.append(model.recovery_error())
+        hist = model.train(timings=times)
+        errs.append(model.recovery_error())
+        if not np.isfinite(hist).all():
+            raise AssertionError(f"DCS seed {s}: a loss is not finite")
+        print(f"  DCS seed {s}: {model.cfg.num_epochs} epochs, {float(np.median(times)):.4f} s an epoch; loss "
+              f"{hist[0]:.3f} -> {hist[-1]:.3f}; recovery error {untrained[-1]:.4f} untrained -> {errs[-1]:.4f}",
+              flush=True)
+    within_spread("DCS recovery error", errs, JAX_DCS, spread_margin(JAX_DCS))
+    # the band separates a trained generator from an untrained one
+    hi = max(JAX_DCS) + spread_margin(JAX_DCS)
+    print(f"  DCS untrained: port {untrained}; JAX {list(JAX_DCS_UNTRAINED)}; each above the band's top {hi:.4f}",
+          flush=True)
+    if not min(untrained + list(JAX_DCS_UNTRAINED)) > hi:
+        raise AssertionError(f"DCS: an untrained recovery error {min(untrained):.4f} lies inside the band")
+    phase_memory("l2o", base)
+    counts = {k.name: k.launches for k in build.KERNELS}
+    require_launches("l2o phase", counts, (), list(counts))
+    return counts
+
+
 # HiGHS's time limits in the problems phase's CLI calls: maxcut's 5 s (its
 # bound and gap go into the result file), and 2 s where BA_100_ID0's balanced
 # partition and the scp4-like cover are not proved within the phase's budget
@@ -2766,6 +3177,12 @@ def main() -> int:
     t0 = time.time()
     run_beamforming(dev)
     phase("beamforming", t0)
+    t0 = time.time()
+    tsp_counts = run_tsp(dev)
+    phase("tsp", t0)
+    t0 = time.time()
+    l2o_counts = run_l2o(dev)
+    phase("l2o", t0)
 
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
@@ -2773,26 +3190,26 @@ def main() -> int:
         with open(os.path.join(data_dir, "W22like.txt"), "w") as f:  # gset format, 1-indexed
             f.write(f"{w22.num_nodes} {w22.num_edges}\n")
             f.writelines(f"{a + 1} {b + 1} {int(x)}\n" for (a, b), x in zip(w22.edges.tolist(), w22.weights))
-        runs = [(["--alg", "mcpg", "--fast", "--data-dir", data_dir, "--prefixes", "W22like"], 2)]
-        runs += [(["--alg", alg] + fast, 1) for alg in ("l2a", "local_search") for fast in ([], ["--fast"])]
-        for args, count in runs:
-            proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", *args, "--graphs", "BA_100_ID0"],
-                                  capture_output=True, text=True, cwd=REPO, timeout=600)
-            print("  " + proc.stdout.strip().replace("\n", "\n  "), flush=True)
-            if proc.returncode != 0 or proc.stdout.count("obj=") != count:
-                raise AssertionError(f"CLI {args} failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    # the baselines' entries in this process (the module entry point above
-    # starts a new process, about 8 s each)
+        args = ["--alg", "mcpg", "--fast", "--data-dir", data_dir, "--prefixes", "W22like", "--graphs", "BA_100_ID0"]
+        proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", *args], capture_output=True, text=True,
+                              cwd=REPO, timeout=600)
+        print("  " + proc.stdout.strip().replace("\n", "\n  "), flush=True)
+        if proc.returncode != 0 or proc.stdout.count("obj=") != 2:
+            raise AssertionError(f"CLI {args} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    # the other entries in this process (a `python -m` run pays its own start-up
+    # and first calls, 7-13 s each)
     import contextlib
     import io
     from rlsolver_tpu_torch.run import main as cli_main
-    for alg, graph in (("sa", "BA_100_ID0"), ("isco", "BA_100_ID0"), ("ga", "BA_100_ID0"), ("vqe", VQE_GRAPH)):
+    runs = [(["--alg", alg] + fast, "BA_100_ID0") for alg in ("l2a", "local_search") for fast in ([], ["--fast"])]
+    runs += [(["--alg", alg], "BA_100_ID0") for alg in ("sa", "isco", "ga")] + [(["--alg", "vqe"], VQE_GRAPH)]
+    for args, graph in runs:
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            rc = cli_main(["--alg", alg, "--graphs", graph])
+            rc = cli_main(args + ["--graphs", graph])
         print("  " + out.getvalue().strip(), flush=True)
         if rc != 0 or out.getvalue().count("obj=") != 1:
-            raise AssertionError(f"CLI --alg {alg} failed ({rc}): {out.getvalue()}")
+            raise AssertionError(f"CLI {args} failed ({rc}): {out.getvalue()}")
     phase("cli", t0)
 
     # 10. timings at each path's shapes ---------------------------------------
@@ -3049,6 +3466,7 @@ def main() -> int:
         k["runners_launches"] = runner_counts[k["name"]]
         k["pattern_i_launches"] = pattern_i_counts[k["name"]]
         k["tnco_launches"] = tnco_counts[k["name"]]
+        k["tsp_launches"], k["l2o_launches"] = tsp_counts[k["name"]], l2o_counts[k["name"]]
         if k["name"] == "mh_sample_fused":
             k.update(k3_tnco)
         if k["name"] == "sweep_1flip_weighted":

@@ -26,7 +26,13 @@ The JAX state arrives as numpy arrays (the caller converts with
     logits go through `policy_state_dict`;
   * a flax `GCN` tree, or PI-GNN's `{"gcn": tree, "embed", "skip"}`,
     becomes the port's GCN state dict or PI-GNN parameter dict
-    (`gcn_state_dict`).
+    (`gcn_state_dict`);
+  * the trees of the TSP `AttentionTSP`, the L2O/seq2seq `SolverLSTM`
+    (flax's `OptimizedLSTMCell`: `lstm.ii.kernel` .. `lstm.ho.bias`),
+    `RunCspNetwork` and the REINFORCE critic become their modules' state
+    dicts (`attention_tsp_state_dict`, `solver_lstm_state_dict`,
+    `runcsp_state_dict`, `critic_state_dict`), and DCS's `{"gen": tree,
+    "f", "log_step"}` its parameter dict (`dcs_params`).
 """
 
 from __future__ import annotations
@@ -153,3 +159,36 @@ def s2v_state_dict(params) -> Dict[str, torch.Tensor]:
 def precoder_state_dict(params) -> Dict[str, torch.Tensor]:
     """The flax `PrecoderPolicy` tree (`Dense_0` .. `Dense_2`) -> the port's."""
     return flax_state_dict(params)
+
+
+def attention_tsp_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The flax `AttentionTSP` tree -> the port's (`embed.kernel`,
+    `enc0.mha.query.kernel` [D, H, D/H], ..., `out.bias`)."""
+    return flax_state_dict(params)
+
+
+def solver_lstm_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The flax `SolverLSTM` tree -> the port's (`lstm.ii.kernel`, ...,
+    `lstm.ho.bias`, `out.kernel`, `out.bias`)."""
+    return flax_state_dict(params)
+
+
+def runcsp_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The flax `RunCspNetwork` tree -> the port's (`NEQ_lr.kernel`, ...,
+    `norm.scale`, `lstm.ii.kernel`, ..., `out.kernel`)."""
+    return flax_state_dict(params)
+
+
+def critic_state_dict(params) -> Dict[str, torch.Tensor]:
+    """The REINFORCE `CriticBaseline`'s flax tree -> the port's `CriticNet`
+    (`Dense_0` .. `Dense_2`)."""
+    return flax_state_dict(params)
+
+
+def dcs_params(params) -> Dict[str, torch.Tensor]:
+    """DCS's `{"gen": flax tree, "f": [M, N], "log_step": []}` -> the port's
+    parameter dict {"gen.Dense_0.kernel", ..., "f", "log_step"}."""
+    out = {"gen." + k: v for k, v in flax_state_dict(params["gen"]).items()}
+    for k in ("f", "log_step"):
+        out[k] = torch.from_numpy(np.array(params[k], np.float32))
+    return out

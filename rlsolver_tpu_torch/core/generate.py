@@ -223,3 +223,18 @@ def generate_knapsack(num_items: int, seed: Optional[int] = None, max_weight: in
     profits = rng.integers(1, max_profit + 1, num_items).astype(np.float32)
     capacity = float(np.floor(0.3 * weights.sum()))
     return KnapsackInstance(seed or 0, capacity, weights, profits)
+
+
+def generate_tsp_coords(batch: int, num_nodes: int, low: float = 0.0, high: float = 1.0, mode: str = "uniform",
+                        seed: Optional[int] = None) -> np.ndarray:
+    """Random TSP coordinates [batch, n, 2] float64 from numpy's
+    `default_rng(seed)`, as the JAX package draws them (RLSolver's
+    `util_generate.py:33-43`): uniform in [low, high), or Gaussian rescaled
+    onto [low, high]."""
+    rng = np.random.default_rng(seed)
+    if mode == "uniform":
+        return rng.uniform(low, high, size=(batch, num_nodes, 2))
+    if mode == "gaussian":
+        c = rng.normal(0.0, 1.0, size=(batch, num_nodes, 2))
+        return np.interp(c, (c.min(), c.max()), (low, high))
+    raise ValueError(f"unknown mode {mode}")

@@ -3,13 +3,15 @@
 Format: first non-comment line "N M", then M lines "n0 n1 w" with 1-indexed
 nodes; lines containing "//" are comments. Also the knapsack, set-cover and
 multi-knapsack instances and their readers (RLSolver's
-`util_read_data.py:245-344` formats).
+`util_read_data.py:245-344` formats), and TSP coordinate files
+('<index> <x> <y>' lines) with their distance matrix.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -149,3 +151,28 @@ def read_multiknapsack(filename: str) -> MultiKnapsackInstance:
         optimal = float(next(it))
     return MultiKnapsackInstance(optimal, np.asarray(profits, np.float32), np.asarray(cons, np.float32),
                                  np.asarray(rhs, np.float32))
+
+
+def read_tsp_coords(filename: str) -> np.ndarray:
+    """Parse '<index> <x> <y>' coordinate lines; returns [n, 2] float64 (a
+    fresh block restarts at index 1, and a line with EOF ends the file)."""
+    coords: List[Tuple[float, float]] = []
+    prev = 0
+    with open(filename, "r") as f:
+        for line in f:
+            if "EOF" in line:
+                break
+            parts = line.split()
+            if len(parts) == 3 and re.fullmatch(r"\d+", parts[0]):
+                idx = int(parts[0])
+                if idx == 1 and prev not in (0, 1):
+                    coords = []  # restart on a fresh 1-indexed block
+                coords.append((float(parts[1]), float(parts[2])))
+                prev = idx
+    return np.asarray(coords, np.float64)
+
+
+def tsp_distance_matrix(coords: np.ndarray) -> np.ndarray:
+    """Euclidean distances [n, n] float64 between the rows of coords."""
+    d = coords[:, None, :] - coords[None, :, :]
+    return np.sqrt((d * d).sum(-1))

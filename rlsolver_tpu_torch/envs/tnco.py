@@ -34,6 +34,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rlsolver_tpu_torch.capture import CapturedCall
 from rlsolver_tpu_torch.device import resolve_device
 
 
@@ -262,7 +263,7 @@ class TncoEnv:
             dims0[n1, n0] += 1.0
         self.dims0 = torch.from_numpy(dims0).to(self.device)
         self._shifts = torch.arange(self.num_bases - 1, -1, -1, device=self.device)
-        self._graphs = {}  # batch size -> (CUDA graph, its input, its output)
+        self._graphs = {}  # batch size -> its CapturedCall
 
     # ----------------------------------------------------------------- codecs
     def bits_to_edge_sorts(self, xs: torch.Tensor) -> torch.Tensor:
@@ -305,28 +306,10 @@ class TncoEnv:
         an edge inside one cluster costs nothing. On the card the R steps
         (about 15 small kernels each) replay as one CUDA graph, captured
         once per batch size."""
-        if not edge_sorts.is_cuda:
-            return self._pow_counts_steps(edge_sorts)
         b = edge_sorts.shape[0]
         if b not in self._graphs:
-            self._graphs[b] = self._capture(b)
-        graph, static_in, static_out = self._graphs[b]
-        static_in.copy_(edge_sorts)
-        graph.replay()
-        return static_out.clone()
-
-    def _capture(self, b: int):
-        """A CUDA graph of `_pow_counts_steps` on a static [b, R] input."""
-        static_in = torch.zeros(b, self.run_edges, dtype=torch.long, device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):  # warm-up outside the capture, as CUDA graphs require
-            self._pow_counts_steps(static_in)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            static_out = self._pow_counts_steps(static_in)
-        return graph, static_in, static_out
+            self._graphs[b] = CapturedCall(self._pow_counts_steps)
+        return self._graphs[b](edge_sorts).clone()
 
     def _pow_counts_steps(self, edge_sorts: torch.Tensor) -> torch.Tensor:
         """The step loop. `rows[b, c]` is cluster c's row (c = the id its

@@ -40,25 +40,46 @@ class ClippedAdam:
         for p in self.params:
             p.grad = None
 
+    def corrections(self) -> torch.Tensor:
+        """Counts the next update and returns its bias corrections [1 - b1^c,
+        1 - b2^c] as f32 on the host."""
+        self.count += 1
+        count = torch.tensor(self.count, dtype=torch.float32)
+        return torch.stack([1 - torch.tensor(self.b1, dtype=torch.float32) ** count,
+                            1 - torch.tensor(self.b2, dtype=torch.float32) ** count])
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The tensors a step writes: the parameters and both moments."""
+        return self.params + self.mu + self.nu
+
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, corr: Optional[torch.Tensor] = None) -> None:
+        """One update. The clip is optax's `where`, on the card, so the step
+        never waits for it. `corr` is this update's `corrections()` (counted
+        here when None); a step captured in a CUDA graph takes it as an
+        input (`capture.CapturedCall`), refilled before each replay, and
+        then needs a fixed step size."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.max_norm is not None:
             g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            if not bool(g_norm < self.max_norm):
-                grads = [(g / g_norm) * self.max_norm for g in grads]
+            trigger = g_norm < self.max_norm
+            grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm) for g in grads]
         lr = self.lr
-        if self.schedule_steps is not None:
-            steps = np.float32(self.schedule_steps)
-            lr = float(np.float32(self.lr) * (np.float32(1.0) - np.float32(min(self.count, self.schedule_steps)) / steps))
-        self.count += 1
-        count = torch.tensor(self.count, dtype=torch.float32)
-        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        if corr is None:
+            if self.schedule_steps is not None:
+                steps = np.float32(self.schedule_steps)
+                lr = float(np.float32(self.lr) * (np.float32(1.0) - np.float32(min(self.count, self.schedule_steps))
+                                                  / steps))
+            corr = self.corrections()
+        elif self.schedule_steps is not None:
+            raise ValueError("a step given its bias corrections takes a fixed step size")
+        if self.params:
+            corr = corr.to(self.params[0].device)
+        c1, c2 = corr[0], corr[1]
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-            update = (mu / c1.to(mu.device)) / (torch.sqrt(nu / c2.to(nu.device)) + self.eps)
+            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
             p.add_(-lr * update)
 
     def state_dict(self) -> Dict[str, object]:

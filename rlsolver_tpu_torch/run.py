@@ -2,13 +2,17 @@
 over the problem, algorithm and instance axes.
 
   maxcut               mcpg, l2a, local_search, greedy, sa, ga, random_walk,
-                       sdp, bls, isco, pignn, milp (HiGHS), vqe (n <= 16)
+                       sdp, bls, isco, pignn, milp (HiGHS), vqe (n <= 16),
+                       seq2seq, l2o
   mis                  greedy, isco, milp
   mvc                  greedy, milp
   graph_partitioning   greedy, milp
   graph_coloring       greedy, welsh_powell, dsatur, rlf
   set_cover            greedy, milp (instance files: --data-dir)
   knapsack             greedy, dp, branch_and_bound, fptas, sa, milp (--data-dir)
+  tsp                  nn, christofides, karp_steele, cheapest_insertion, each
+                       polished by 200 iterations of best-improvement 2-opt
+                       on the card (--data-dir of .tsp files)
 
     python -m rlsolver_tpu_torch --alg mcpg --fast --graphs BA_100_ID0
     python -m rlsolver_tpu_torch --alg mcpg --data-dir data/gset --prefixes gset_14
@@ -16,6 +20,7 @@ over the problem, algorithm and instance axes.
     python -m rlsolver_tpu_torch --alg milp --milp-time-limit 60 --graphs BA_100_ID0
     python -m rlsolver_tpu_torch --problem graph_coloring --alg dsatur --graphs BA_100_ID0
     python -m rlsolver_tpu_torch --problem knapsack --alg dp --data-dir data/knapsack
+    python -m rlsolver_tpu_torch --problem tsp --alg christofides --data-dir data/tsp
 
 `--fast` takes the packed CUDA kernels where the graph's weights are
 integers: MCPG's fused sampler and packed sweeps; for L2A and local search
@@ -26,11 +31,12 @@ seconds and writes its dual bound and gap into the result file.
 
 Device solvers run on the card unless `--device cpu`; the host solvers
 (greedy heuristics, colorings, knapsack's greedy, FPTAS and branch and
-bound, MILP) take no device. Every returned solution is re-scored with
-the host objective (a coloring must also be proper), and a mismatch
-raises. `--write` writes reference-format result files. `--problem tsp`
-and the JAX CLI's other algorithms are not ported yet and raise
-NotImplementedError.
+bound, MILP, the TSP constructions) take no device. Every returned
+solution is re-scored with the host objective (a coloring must also be
+proper; a TSP tour must be a permutation whose length `obj_tsp` confirms
+within 1e-3 relative), and a mismatch raises. `--write` writes
+reference-format result files (not for TSP, as in the JAX CLI). A pair
+that neither CLI has raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -145,6 +151,20 @@ def _vqe(graph: Graph, seed: int, opts: Options):
     return bits, cut
 
 
+def _seq2seq(graph: Graph, seed: int, opts: Options):
+    from rlsolver_tpu_torch.algos.l2o import Seq2SeqConfig, solve_maxcut_seq2seq
+
+    bits, cut, _ = solve_maxcut_seq2seq(graph, Seq2SeqConfig(seed=seed), device=opts.device)
+    return bits, cut
+
+
+def _l2o(graph: Graph, seed: int, opts: Options):
+    from rlsolver_tpu_torch.algos.l2o import L2OConfig, solve_maxcut_l2o
+
+    bits, cut, _ = solve_maxcut_l2o(graph, L2OConfig(seed=seed), device=opts.device)
+    return bits, cut
+
+
 def _mis_isco(graph: Graph, seed: int, opts: Options):
     from rlsolver_tpu_torch.algos.isco import ISCOConfig, solve_mis_isco
 
@@ -227,12 +247,31 @@ def _knapsack_solvers() -> Dict[str, Solver]:
     }
 
 
+def _tsp_solvers() -> Dict[str, Solver]:
+    """TSP over coordinate files (`read_tsp_coords`): a host construction,
+    then 200 iterations of batched best-improvement 2-opt on the device.
+    A solver returns (tour, length)."""
+    from rlsolver_tpu_torch.classical import tsp as ctsp
+
+    def chain(construct):
+        def solve(dist: np.ndarray, seed: int, opts: Options):
+            tours, lengths = ctsp.two_opt_best_improvement(np.asarray(construct(dist))[None], dist, max_iters=200,
+                                                           device=opts.device)
+            return tours[0].cpu().numpy(), float(lengths[0])
+
+        return solve
+
+    return {"nn": chain(ctsp.nearest_neighbor_tour), "christofides": chain(ctsp.christofides_tour),
+            "karp_steele": chain(ctsp.karp_steele_tour), "cheapest_insertion": chain(ctsp.cheapest_insertion_tour)}
+
+
 SOLVERS: Dict[str, Solver] = {"mcpg": _mcpg, "local_search": _local_search, "l2a": _l2a, "greedy": _greedy,
                               "sa": _sa, "ga": _ga, "random_walk": _random_walk, "sdp": _sdp, "bls": _bls,
-                              "isco": _isco, "pignn": _pignn, "milp": _milp, "vqe": _vqe}
+                              "isco": _isco, "pignn": _pignn, "milp": _milp, "vqe": _vqe, "seq2seq": _seq2seq,
+                              "l2o": _l2o}
 PORTED_ALGS = tuple(SOLVERS)
 INSTANCE_PROBLEMS = ("set_cover", "knapsack")  # instance files of their own, not graphs
-PROBLEMS = ("maxcut", "mis", "mvc", "graph_partitioning", "graph_coloring") + INSTANCE_PROBLEMS
+PROBLEMS = ("maxcut", "mis", "mvc", "graph_partitioning", "graph_coloring") + INSTANCE_PROBLEMS + ("tsp",)
 
 
 def _registry(problem: str) -> Dict[str, Solver]:
@@ -242,6 +281,8 @@ def _registry(problem: str) -> Dict[str, Solver]:
         return _set_cover_solvers()
     if problem == "knapsack":
         return _knapsack_solvers()
+    if problem == "tsp":
+        return _tsp_solvers()
     return _graph_problem_solvers()[problem]
 
 
@@ -306,12 +347,30 @@ def run_instance_problem(problem: str, alg: str, path: str, seed: int, write: bo
     return value, duration, out
 
 
+def run_tsp(alg: str, path: str, seed: int, device=None) -> Tuple[float, float]:
+    """One .tsp file: its solver, then the re-validation (a permutation
+    whose `obj_tsp` re-score is the reported length within 1e-3 relative).
+    Returns (length, seconds)."""
+    from rlsolver_tpu_torch.core.io import read_tsp_coords, tsp_distance_matrix
+
+    dist = tsp_distance_matrix(read_tsp_coords(path))
+    t0 = time.time()
+    tour, length = _tsp_solvers()[alg](dist, seed, Options(device=device))
+    duration = time.time() - t0
+    if sorted(np.asarray(tour).tolist()) != list(range(dist.shape[0])):
+        raise RuntimeError(f"{alg} returned a non-permutation tour on {path}")
+    check = -obj.obj_tsp(tour, dist)
+    if abs(check - length) > 1e-3 * max(1.0, abs(length)):
+        raise RuntimeError(f"solver/objective mismatch: {length} vs {check}")
+    return length, duration
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="rlsolver_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--problem", default="maxcut")
     p.add_argument("--alg", required=True)
-    p.add_argument("--data-dir", default=None, help="directory of gset-format (or instance) txt files")
+    p.add_argument("--data-dir", default=None, help="directory of gset-format (or instance, or .tsp) files")
     p.add_argument("--prefixes", nargs="*", default=[], help="instance filename prefixes")
     p.add_argument("--graphs", nargs="*", default=[], help="synthetic names, e.g. BA_100_ID0")
     p.add_argument("--seed", type=int, default=0)
@@ -329,6 +388,18 @@ def main(argv=None) -> int:
             f"--problem {args.problem} --alg {args.alg} is not yet ported to rlsolver_tpu_torch "
             f"(ported: {_ported_pairs()})"
         )
+
+    if args.problem == "tsp":
+        if not args.data_dir:
+            p.error("tsp needs --data-dir of .tsp files")
+        import glob
+
+        for f in sorted(glob.glob(os.path.join(args.data_dir, "*.tsp"))):
+            if args.prefixes and not any(os.path.basename(f).startswith(x) for x in args.prefixes):
+                continue
+            length, duration = run_tsp(args.alg, f, args.seed, device=args.device)
+            print(f"{args.alg} {os.path.basename(f)}: length={length:.6f} time={duration:.2f}s")
+        return 0
 
     if args.problem in INSTANCE_PROBLEMS:
         if not args.data_dir:

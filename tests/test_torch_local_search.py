@@ -90,12 +90,15 @@ def test_cli_runs_on_cpu(alg, fast, capsys, monkeypatch):
 
 
 def test_cli_lists_the_ported_algs():
-    assert PORTED_ALGS == ("mcpg", "local_search", "l2a", "greedy", "sa", "ga", "random_walk", "sdp", "bls", "isco",
-                           "pignn", "milp", "vqe")
+    from rlsolver_tpu import run as jrun
+    from rlsolver_tpu_torch.run import _registry
+
+    assert set(PORTED_ALGS) == set(jrun.SOLVERS)  # every maxcut algorithm of the JAX CLI
+    assert tuple(_registry("tsp")) == ("nn", "christofides", "karp_steele", "cheapest_insertion")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli_main(["--alg", "seq2seq", "--graphs", "BA_100_ID0", "--device", "cpu"])
+        cli_main(["--problem", "tsp", "--alg", "mcpg", "--graphs", "BA_100_ID0", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="--problem mis: greedy, isco, milp"):
-        cli_main(["--problem", "tsp", "--alg", "nn", "--graphs", "BA_100_ID0", "--device", "cpu"])
+        cli_main(["--problem", "tsp", "--alg", "mcpg", "--graphs", "BA_100_ID0", "--device", "cpu"])
 
 
 ENTRY_POINTS = {
