@@ -9,8 +9,13 @@ Phases (each prints its seconds; any failure exits non-zero):
                and is held bit for bit against its plain PyTorch version:
                K2-K5 on the G22-like graph (N = 2000; 2^20 chains for the
                sampler and the sweep, 2048 for the warm start's 1-flip
-               sweep); K5 (signed neighbour lists in a level schedule,
-               copied into shared memory) also on a +-1 G22-like, on Hub3000's topology with unit and +-1
+               sweep); K2 (the stream through the bulk-copy ring) also on
+               1001 chains (rows padded to 1004) with words W and past it
+               among the proposals; K3 in the form `fused_form` picks (the
+               chain form at 2^20), and both its forms on the wide path
+               (N = 2^15 + 3, 4099 chains, 101 rounds); K5 (signed
+               neighbour lists in a level schedule, copied into shared
+               memory) also on a +-1 G22-like, on Hub3000's topology with unit and +-1
                weights and on a 10,000-node unit path, each against the
                sequential plain sweep, the f32 sweep and K8b; the engine's
                1-flip choice on D2000-like's topology with unit weights
@@ -38,7 +43,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                of G22-like (the MH shapes of bench.py), on 1001 chains x
                1000 rounds with nodes -1 and N among the proposals, at
                N = 10000, and at N = 52,000, 55,000 and 58,000, where the
-               ring shrinks to 2 stages, 1 and none; K11 against K12 on
+               ring shrinks to 2 stages, 1 and none; K2 beside a 32-chain
+               tile on 130 chains at N = 52,000, 57,500, 57,700 and 58,000
+               (its ring's 4 stages, 2, 1 and none); K11 against K12 on
                probs of the 2^-16 grid, and K11's marginals against the
                policy;
   3. stream  — K2, the injected-randomness twin of K3, which no solver path
@@ -81,7 +88,8 @@ Phases (each prints its seconds; any failure exits non-zero):
                2 iterations with a checkpoint each, then resumed from the
                straight run's iteration-1 checkpoint; each resumed state equal
                to the straight one leaf by leaf, bit for bit, each best cut
-               equal to its host re-score, K3, K4 and K5 (MCPG) and K10 (L2A)
+               equal to its host re-score, K3 (the chain form at 458,752
+               chains, timed there), K4 and K5 (MCPG) and K10 (L2A)
                launched, no other sweep, their plain versions made to raise;
                the checkpoint's bytes and the seconds per round beside the
                main phase's; then the device time by kernel of one rollout
@@ -117,10 +125,12 @@ Phases (each prints its seconds; any failure exits non-zero):
                and the r-Cheeger cut of G22-like, a uniform random 3-SAT of
                SATLIB's uf250-1065 shape, MIMO detection at 400 x 400 and
                10 dB (with ZF's and MMSE's bit error rates) and a 2000-item
-               subset-sum with 8 tags: K3 must launch in every solve, equal
+               subset-sum with 8 tags: K3 must launch in every solve (the
+               split form, which `fused_form` picks at 8192 chains), equal
                its plain version on the first 256 chains at each problem's
-               (N, 8192 chains, MH rounds), and every best score its float64
-               host re-score; then the device time by kernel of one QUBO and
+               (N, 8192 chains, MH rounds), timed there beside the chain
+               form, and every best score its float64 host re-score; then
+               the device time by kernel of one QUBO and
                one MaxSAT round (`run_mcpg_multi`);
      mcpg_batch — `solve_maxcut_mcpg_batched` with DIST_TABLE's MCPG protocol
                (256 x 32 chains, 8 sweeps, 6 epochs of 8 rounds) at full
@@ -184,9 +194,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                counted and printed;
      tnco    — TNCO at random_circuit_nodes(53, 12, seed=0), Sycamore N53's
                12-layer shape (418 tensors, 677 bonds, 6770 bits; after
-               baselines, `run_tnco`): K3 bit for bit against its plain
-               version at MCPG's 128 chains x 6770 bits x 64 rounds and
-               timed there; `solve_tnco_mcpg` at TncoMcpgConfig's widths (32 x
+               baselines, `run_tnco`): K3 (the split form) bit for bit
+               against its plain version at MCPG's 128 chains x 6770 bits x
+               64 rounds and timed there beside the chain form, with a
+               chain's serial floor (one chain's launches);
+               `solve_tnco_mcpg` at TncoMcpgConfig's widths (32 x
                4 chains, 64 MH rounds, 4 local-search iterations), 4 of 30
                rounds, with sampler="fused" (K3 must launch) and "scan" (no
                kernel); `solve_tnco_local_search` at its defaults, 2 of 30
@@ -258,7 +270,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                re-scored by the CLI, which raises on a mismatch);
  10. time    — kernel, plain-version and bound times at each path's shapes
                (K7's with its transposes; K8a on D2000-like, the d2000
-               phase's graph and chains), K6 on G22-like's own lists beside
+               phase's graph and chains; K3's chain form at 2^20 chains
+               and its split form at mcpg_multi's 8192 chains x 1000
+               rounds on G22-like, each with a chain's serial floor: R x
+               one round's dependent latency from one chain's launches),
+               K6 on G22-like's own lists beside
                K4, K8b beside K5 on G22-like, and K8a beside K8b on
                D2000-like and W22-like (forced); a bit-plane sweep's bound counts the
                popcounts its tables' non-zero words need and, per warp and
@@ -282,6 +298,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -335,6 +352,7 @@ K11_OPS = 10 + 3  # per proposal: node/word/bit decode, read bit, flip; q, u*q, 
 K11_CHAIN_ACCESSES = 3
 SMEM_LATENCY_CYCLES = 30
 MH_CHAINS, MH_ROUNDS = 8192, 1024  # the MH shapes of bench.py
+SPLIT_CHAINS, SPLIT_ROUNDS = 8192, 1000  # mcpg_multi's K3 shape on G22-like (256 x 32 chains, N = 2000)
 FORCED_STAGE = 100  # K7's list entries per stage in the checks that force it small
 FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_levels"}  # by FlipPlan.levels
 SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
@@ -407,6 +425,37 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device ms of fn() over `reps` calls captured in one CUDA graph
+    and replayed, so that no host time falls between the launches (K3's
+    short launches), after one eager call."""
+    fn()
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(side):  # by hand: torch.cuda.graph would gc.collect and empty_cache at each capture
+        graph.capture_begin()
+        for _ in range(reps):
+            fn()
+        graph.capture_end()
+    graph.replay()
+    return cuda_ms(graph.replay, 1, warmup=False) / reps
+
+
+FORM_SECONDS: dict = {}  # by phase: the wall seconds of K2's ring checks and K3's two forms' checks and timings
+
+
+@contextlib.contextmanager
+def form_seconds(key: str):
+    """Adds the block's wall seconds, the card synchronised at both ends, to
+    FORM_SECONDS[key]: what the checks and timings of K2's ring and of K3's
+    two forms take of the script's time limit."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    FORM_SECONDS[key] = FORM_SECONDS.get(key, 0.0) + time.perf_counter() - t
+
+
 def bound(bytes_moved: float, int_ops: float, popc_ops: float, warp_reads: float = 0.0, f32_ops: float = 0.0):
     """Least ms for the work: the largest of the bytes over the memory rate,
     the integer operations over the INT32 rate, the popcounts over the
@@ -452,6 +501,20 @@ def scan_work(chains: int, sweeps: int, needed, dense, read):
     def total(pair):
         return pair[0] + (sweeps - 1) * pair[1]
     return chains * total(needed), chains * total(dense), -(-chains // 32) * total(read)
+
+
+def k3_serial(thr, n: int, rounds: int, probe: int = 2000) -> dict:
+    """A chain's serial floor in K3 at `rounds` rounds: one chain's launch of
+    `probe` and of 2 x `probe` rounds in each form, whose difference over
+    `probe` is one round's dependent latency (the launch's own cost
+    cancels); the floor is `rounds` x the lesser of the forms' latencies."""
+    from rlsolver_tpu_torch.ops.kernels import codec, mh_sampler as mh
+    words = torch.zeros(1, codec.num_words(n), dtype=torch.int32, device=thr.device)
+    lat = {}
+    for k in (mh.MH_FUSED, mh.MH_FUSED_SPLIT):
+        t1, t2 = (graph_ms(lambda r=r: mh.launch_fused(k, thr, words, n, r, 99)) for r in (probe, 2 * probe))
+        lat[k.name] = 1e3 * (t2 - t1) / probe
+    return dict(serial_round_us=lat, serial_floor_ms=rounds * min(lat.values()) / 1e3)
 
 
 def require_equal(name, a, b, errs, key):
@@ -771,24 +834,28 @@ def run_mcpg_multi(dev, errs: dict) -> dict:
         probs = torch.rand(prob.num_vars, generator=gen, device=dev) * 0.6 + 0.2
         chains = torch.rand(MULTI_CHAINS * MULTI_REPEATS, prob.num_vars, generator=gen, device=dev) < 0.5
         thr, words = mh.fused_thresholds(probs), codec.pack_bits(chains)
-        k3_ms = cuda_ms(lambda: mh.MH_FUSED.launch(thr, words.clone(), chains.shape[0], words.shape[1], prob.num_vars,
-                                                   rounds, 4321), 5) - cuda_ms(words.clone, 5)
+        k3 = mh.fused_kernel(chains.shape[0], words.shape[1], dev)
+        scratch = words.clone()
+        with form_seconds("mcpg_multi"):
+            k3_ms, chain_ms = (graph_ms(lambda: mh.launch_fused(kern, thr, scratch, prob.num_vars, rounds, 4321))
+                               for kern in (k3, mh.MH_FUSED))
         k3_bound = bound(2 * words.numel() * 4 + thr.numel() * 4, rounds * chains.shape[0] * K3_OPS, 0)
-        k3_shapes.append(dict(problem=name, chains=chains.shape[0], n=prob.num_vars, rounds=rounds, ms=k3_ms,
-                              bound_ms=k3_bound[0], bound_by=k3_bound[1]))
+        k3_shapes.append(dict(problem=name, chains=chains.shape[0], n=prob.num_vars, rounds=rounds, form=k3.name,
+                              ms=k3_ms, chain_form_ms=chain_ms, bound_ms=k3_bound[0], bound_by=k3_bound[1]))
         out = mh.mh_sample_fused(4321, probs, chains, rounds)[:MULTI_PLAIN]
         plain = codec.unpack_bits(mh.mh_fused_plain(4321, thr, words[:MULTI_PLAIN], prob.num_vars, rounds),
                                   prob.num_vars)
-        require_equal(f"K3 mh_sample_fused at {name}'s shape (first {MULTI_PLAIN} of {chains.shape[0]} chains, "
-                      f"N = {prob.num_vars}, {rounds} rounds)", out, plain, errs, "mh_sample_fused")
+        require_equal(f"K3 {k3.name} at {name}'s shape (first {MULTI_PLAIN} of {chains.shape[0]} chains, "
+                      f"N = {prob.num_vars}, {rounds} rounds)", out, plain, errs, k3.name)
         steady = secs[1:] or secs
-        print(f"  {name}: N = {prob.num_vars}, {rounds} MH rounds; seconds per round {secs} (K3 {k3_ms:.4f} ms, "
-              f"bound {k3_bound[0]:.4f} ms, {100 * k3_ms / 1e3 / np.mean(steady):.3f}% of a later round); best score "
+        print(f"  {name}: N = {prob.num_vars}, {rounds} MH rounds; seconds per round {secs} (K3 {k3.name} "
+              f"{k3_ms:.4f} ms, the chain form {chain_ms:.4f} ms, bound {k3_bound[0]:.4f} ms, "
+              f"{100 * k3_ms / 1e3 / np.mean(steady):.3f}% of a later round); best score "
               f"{res.best_score} host re-score {host} (relative difference {rel:.3g}); history {res.history}; "
               f"max_memory_allocated {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
               f"{base / 2**30:.3f} GiB that earlier phases hold; launches {counts}", flush=True)
-        if counts["mh_sample_fused"] <= 0:
-            raise AssertionError(f"mcpg_multi on {name} did not launch mh_sample_fused")
+        if counts[k3.name] <= 0:
+            raise AssertionError(f"mcpg_multi on {name} did not launch {k3.name}")
         if (integral and res.best_score != host) or not rel <= 1e-5:
             raise AssertionError(f"mcpg_multi on {name}: best score {res.best_score} != host re-score {host}")
         if name.startswith("mimo"):
@@ -1547,7 +1614,7 @@ def _metrics_rows(run_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def run_runners(dev, g, main_seconds, errs: dict) -> dict:
+def run_runners(dev, g, main_seconds, errs: dict, k3_at: dict) -> dict:
     """`solve_maxcut_mcpg_runner` and `solve_maxcut_l2a_runner` on G22-like
     through TrainLoop, each straight and killed-and-resumed, the resumed
     state held leaf by leaf against the straight one (bit for bit), every
@@ -1556,7 +1623,8 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
     of those kernels made to raise; prints the checkpoint's bytes and the
     seconds per round beside the main phase's (`main_seconds`). Then holds
     K3 and K4 against their plain versions at the MCPG runner's shape, on
-    its last round's restart rows and policy (into `errs`), and prints the
+    its last round's restart rows and policy (into `errs`; K3 timed there
+    into `k3_at`), and prints the
     device time of one rollout step and of the first L2A_PROFILE_UPDATES
     minibatches of a PPO update of the L2A runner's steps. Returns the
     launches of both runners."""
@@ -1609,7 +1677,8 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
             raise AssertionError(f"MCPG runner: {leaves - equal} of {leaves} leaves differ after the resume")
         if host != bv:
             raise AssertionError(f"MCPG runner: best cut {bv} != host re-score {host}")
-        require_launches("MCPG runner", mcpg_counts, ("mh_sample_fused", "mcpg_sweep", "sweep_1flip"),
+        k3 = mh.fused_kernel(chains, codec.num_words(g.num_nodes), dev)
+        require_launches("MCPG runner", mcpg_counts, (k3.name, "mcpg_sweep", "sweep_1flip"),
                          [k for k in SWEEPS if k not in ("mcpg_sweep", "sweep_1flip")])
 
         # K3 and K4 at the runner's shape: the next round's restart rows (R
@@ -1625,10 +1694,14 @@ def run_runners(dev, g, main_seconds, errs: dict) -> dict:
         rows = straight.start_xs.repeat(cfg.repeat_times, 1)
         rounds = max(cfg.num_ls, 2 * (cfg.change_times or max(1, n // 10)))
         out = mh.mh_sample_fused(4321, probs, rows, rounds)
-        plain = codec.unpack_bits(mh.mh_fused_plain(4321, mh.fused_thresholds(probs), codec.pack_bits(rows), n,
-                                                    rounds), n)
-        require_equal(f"K3 mh_sample_fused at the MCPG runner's shape ({rows.shape[0]} chains, {rounds} rounds)",
-                      out, plain, errs, "mh_sample_fused")
+        thr, words = mh.fused_thresholds(probs), codec.pack_bits(rows)
+        plain = codec.unpack_bits(mh.mh_fused_plain(4321, thr, words, n, rounds), n)
+        require_equal(f"K3 {k3.name} at the MCPG runner's shape ({rows.shape[0]} chains, {rounds} rounds)",
+                      out, plain, errs, k3.name)
+        with form_seconds("runners"):
+            k3_at["runner"] = dict(chains=rows.shape[0], n=n, rounds=rounds, form=k3.name,
+                                   ms=graph_ms(lambda: mh.launch_fused(k3, thr, words, n, rounds, 4321), 5))
+        print(f"  K3 at the MCPG runner's shape: {k3_at['runner']}", flush=True)
         eng = engine.FusedSweepEngine.build(g, dev)
         if eng.weighted:
             raise AssertionError("the MCPG runner's engine on G22-like is expected to be K4's, not the weighted one")
@@ -1797,15 +1870,21 @@ def run_tnco(dev, errs: dict):
     thr, words = mh.fused_thresholds(probs), codec.pack_bits(bits)
     w = codec.num_words(n)
     plain = codec.unpack_bits(mh.mh_fused_plain(4242, thr, words, n, cfg.mh_rounds), n)
-    require_equal(f"K3 mh_sample_fused at TNCO's shape ({b} chains x {n} bits x {cfg.mh_rounds} rounds)",
-                  mh.mh_sample_fused(4242, probs, bits, cfg.mh_rounds), plain, errs, "mh_sample_fused")
-    k3 = dict(tnco_shape=[b, n, cfg.mh_rounds],
-              tnco_ms=cuda_ms(lambda: mh.MH_FUSED.launch(thr, words, b, w, n, cfg.mh_rounds, 4242), 20),
-              tnco_plain_ms=cuda_ms(lambda: mh.mh_fused_plain(4242, thr, words, n, cfg.mh_rounds), 1, warmup=False))
+    k3_kernel = mh.fused_kernel(b, w, dev)
+    require_equal(f"K3 {k3_kernel.name} at TNCO's shape ({b} chains x {n} bits x {cfg.mh_rounds} rounds)",
+                  mh.mh_sample_fused(4242, probs, bits, cfg.mh_rounds), plain, errs, k3_kernel.name)
+    with form_seconds("tnco"):
+        k3 = dict(tnco_shape=[b, n, cfg.mh_rounds], tnco_form=k3_kernel.name,
+                  tnco_ms=graph_ms(lambda: mh.launch_fused(k3_kernel, thr, words, n, cfg.mh_rounds, 4242)),
+                  tnco_chain_form_ms=graph_ms(lambda: mh.launch_fused(mh.MH_FUSED, thr, words, n, cfg.mh_rounds,
+                                                                      4242)))
+        k3.update({f"tnco_{key}": v for key, v in k3_serial(thr, n, cfg.mh_rounds).items()})
+    k3["tnco_plain_ms"] = cuda_ms(lambda: mh.mh_fused_plain(4242, thr, words, n, cfg.mh_rounds), 1, warmup=False)
     k3["tnco_bound_ms"], k3["tnco_bound_by"] = bound(2 * b * w * 4 + thr.numel() * 4, cfg.mh_rounds * b * K3_OPS, 0)
-    print(f"  K3 at TNCO's shape: {k3['tnco_ms']:.4f} ms (bound {k3['tnco_bound_ms']:.5f} ms, "
-          f"{k3['tnco_bound_by']}; plain {k3['tnco_plain_ms']:.1f} ms); {-(-b // 128)} block(s) of the card's "
-          f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+    print(f"  K3 at TNCO's shape: {k3_kernel.name} {k3['tnco_ms']:.4f} ms, the chain form "
+          f"{k3['tnco_chain_form_ms']:.4f} ms (bound {k3['tnco_bound_ms']:.5f} ms, {k3['tnco_bound_by']}; serial "
+          f"floor {k3['tnco_serial_floor_ms']:.5f} ms, a round {k3['tnco_serial_round_us']} us; plain "
+          f"{k3['tnco_plain_ms']:.1f} ms)", flush=True)
 
     # the best of 128 random orders; one evaluation's CUDA graph (captured at
     # its first call) against the eager step loop, bit for bit, and the
@@ -1846,7 +1925,7 @@ def run_tnco(dev, errs: dict):
         print(f"  MCPG sampler={sampler}: seconds per round {times}; max_memory_allocated "
               f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the phase's start", flush=True)
         check_order(f"MCPG sampler={sampler}", env, order, cost, hist, worse_than=random_best)
-    require_launches("TNCO MCPG sampler=fused", counts["fused"], ("mh_sample_fused",), [k for k in counts["fused"]])
+    require_launches("TNCO MCPG sampler=fused", counts["fused"], (k3_kernel.name,), [k for k in counts["fused"]])
     require_launches("TNCO MCPG sampler=scan", counts["scan"], (), [k for k in counts["scan"]])
 
     # where one fused round's time goes
@@ -2686,6 +2765,7 @@ def main() -> int:
     adj = sw.pack_adjacency(g, dev)
     thr = mh.fused_thresholds(probs)
     errs = {}
+    k3_at = {}  # K3's times at the runner's shape
     B70 = W70_CHAINS * W70_REPEATS  # the W70-like path's chains
     B_PLAIN_W = 2048  # the plain weighted sweeps' chains in the checks (S * N Python steps)
 
@@ -2701,10 +2781,36 @@ def main() -> int:
     k2_out = mh.mh_sample_stream(stream, bits)
     require_equal("K2 mh_sample_stream", k2_out,
                   codec.unpack_bits(mh.mh_stream_plain(stream, codec.pack_bits(bits)), n), errs, "mh_sample_stream")
+    # K2 on 1001 chains (its rows padded to 1004 by `bulk_rows`), words W
+    # and past it among the proposals (no-ops)
+    with form_seconds("check"):
+        odd = stream[:, :1001].clone()
+        pick = torch.rand(odd.shape, generator=gen, device=dev)
+        odd = torch.where(pick < 0.05, (w << 7) | (odd & 127), torch.where(pick > 0.95, odd + (5000 << 7), odd))
+        require_equal("K2 mh_sample_stream on 1001 chains, words >= W mixed in", mh.mh_sample_stream(odd, bits[:1001]),
+                      codec.unpack_bits(mh.mh_stream_plain(odd, codec.pack_bits(bits[:1001])), n), errs,
+                      "mh_sample_stream")
+    del odd, pick
 
+    if mh.fused_kernel(B, w, dev) is not mh.MH_FUSED:
+        raise AssertionError(f"fused_form picks {mh.fused_kernel(B, w, dev).name} at {B} chains; the chain form "
+                             f"is expected there")
     out = mh.mh_sample_fused(12345, probs, bits, ROUNDS)
     plain = codec.unpack_bits(mh.mh_fused_plain(12345, thr, codec.pack_bits(bits), n, ROUNDS), n)
     require_equal("K3 mh_sample_fused", out, plain, errs, "mh_sample_fused")
+    # K3's wide path (N >= 2^15: node = umulhi(draw, N), two draws a round)
+    # in each form
+    with form_seconds("check"):
+        n_wide = mh.WIDE_NODES + 3
+        thr_wide = mh.fused_thresholds(torch.rand(n_wide, generator=gen, device=dev) * 0.6 + 0.2)
+        words_wide = codec.pack_bits(torch.rand(4099, n_wide, generator=gen, device=dev) < 0.5)
+        plain = mh.mh_fused_plain(6789, thr_wide, words_wide, n_wide, 101)
+        for k in (mh.MH_FUSED, mh.MH_FUSED_SPLIT):
+            out = words_wide.clone()
+            mh.launch_fused(k, thr_wide, out, n_wide, 101, 6789)
+            require_equal(f"K3 {k.name} on the wide path (4099 chains x N = {n_wide} x 101 rounds)", out, plain, errs,
+                          k.name)
+    del thr_wide, words_wide
     zeros = torch.zeros(8192, n, dtype=torch.bool, device=dev)
     marg = mh.mh_sample_fused(7, probs, zeros, 20 * n).float().mean(0)
     err = float((marg - probs).abs().max())
@@ -2928,7 +3034,20 @@ def main() -> int:
         x_big = torch.rand(130, n_big, generator=gen, device=dev) < 0.5
         nd, uu = mh.make_round_randoms(gen, 300, 130, n_big)
         check_injected(f"at N = {n_big} (130 chains x 300 rounds)", nd, uu, p_big, x_big)
-    del x10, p10, pick, p_big, x_big
+    # K2's ring (one stream, stages of 8 rounds) beside a 32-chain tile: 4
+    # stages at N = 52,000, 2 at 57,500, 1 at 57,700 and at 58,000 none;
+    # 130 chains, so that the rows are padded
+    with form_seconds("check"):
+        for n_big in (52000, 57500, 57700, 58000):
+            p_big = torch.rand(n_big, generator=gen, device=dev) * 0.6 + 0.2
+            x_big = torch.rand(130, n_big, generator=gen, device=dev) < 0.5
+            s_big = mh.make_proposal_stream(torch.randint(0, 2**32, (300, 130), generator=gen, device=dev,
+                                                          dtype=torch.int64), p_big)
+            require_equal(f"K2 mh_sample_stream at N = {n_big} (130 chains x 300 rounds)",
+                          mh.mh_sample_stream(s_big, x_big),
+                          codec.unpack_bits(mh.mh_stream_plain(s_big, codec.pack_bits(x_big)), n_big), errs,
+                          "mh_sample_stream")
+    del x10, p10, pick, p_big, x_big, s_big
     grid = torch.round(probs * 65536.0) / 65536.0  # 1 - (1 - p) == p in f32 on this grid
     require_equal("K11 vs K12 on probs of the 2^-16 grid", mh.mh_sample_onehot(nodes, u, grid, mh_bits),
                   mh.mh_sample_packed(nodes, mh.make_round_accepts(nodes, u, grid), mh_bits), errs, "mh_sample_onehot")
@@ -2994,7 +3113,7 @@ def main() -> int:
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB launches {fast_counts}")
     if host != best_v:
         raise AssertionError(f"main: best cut {best_v} != host re-score {host}")
-    for k in ("mh_sample_fused", "mcpg_sweep", "sweep_1flip"):
+    for k in (mh.fused_kernel(B, w, dev).name, "mcpg_sweep", "sweep_1flip"):
         if fast_counts[k] <= 0:
             raise AssertionError(f"main path did not launch {k}")
     phase("main", t0)
@@ -3026,7 +3145,7 @@ def main() -> int:
         print(f"  max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB launches {counts}")
         if host != best_v:
             raise AssertionError(f"{gw.name}: best cut {best_v} != host re-score {host}")
-        for k in ("mh_sample_fused", sweep_k, flip_k):
+        for k in (mh.fused_kernel(bw, codec.num_words(gw.num_nodes), dev).name, sweep_k, flip_k):
             if counts[k] <= 0:
                 raise AssertionError(f"{gw.name} path did not launch {k}")
         wrong = [k for k in SWEEPS if k not in (sweep_k, flip_k) and counts[k]]
@@ -3137,7 +3256,7 @@ def main() -> int:
 
     # the runners on TrainLoop (checkpoint and resume; l2a's profile folded in)
     t0 = time.time()
-    runner_counts = run_runners(dev, g, main_seconds, errs)
+    runner_counts = run_runners(dev, g, main_seconds, errs, k3_at)
     phase("runners", t0)
     t0 = time.time()
     run_problems(dev)
@@ -3219,6 +3338,7 @@ def main() -> int:
     stream = proposal_stream()
     thr1, thr2 = sw._noisy_thresholds(tables, 0.25)
     word_bytes = 2 * B * w * 4  # chains read and written once
+    words_split = words[:SPLIT_CHAINS].clone()
     # K4: sweep 1 meets m_proc and m_unproc (and their negative planes),
     # later sweeps m_all (and its negative plane)
     sp = 2 if tables.signed else 1
@@ -3240,13 +3360,20 @@ def main() -> int:
                     -(-B_WARM // 32) * list_reads(aw22.offsets, aw22.entries))
     rows = [
         dict(name="mh_sample_stream", kernel=mh.MH_STREAM, launches=stream_counts["mh_sample_stream"],
-             run=lambda: mh.MH_STREAM.launch(stream, words, B, w, ROUNDS),
+             run=lambda: mh.MH_STREAM.launch(stream, words, B, B, w, ROUNDS),
              plain=lambda: mh.mh_stream_plain(stream, words), plain_chains=B, reps=10,
              bytes=word_bytes + stream.numel() * 4, step_ops=ROUNDS * B * K2_OPS),
         dict(name="mh_sample_fused", kernel=mh.MH_FUSED, launches=fast_counts["mh_sample_fused"],
-             run=lambda: mh.MH_FUSED.launch(thr, words, B, w, n, ROUNDS, 12345),
+             run=lambda: mh.launch_fused(mh.MH_FUSED, thr, words, n, ROUNDS, 12345),
              plain=lambda: mh.mh_fused_plain(12345, thr, words, n, ROUNDS), plain_chains=B, reps=10,
-             bytes=word_bytes + thr.numel() * 4, step_ops=ROUNDS * B * K3_OPS),
+             bytes=word_bytes + thr.numel() * 4, step_ops=ROUNDS * B * K3_OPS, serial_rounds=ROUNDS, graph=True),
+        # K3's split form at mcpg_multi's maxcut shape (8192 chains of G22-like, 1000 rounds); its launches are
+        # mcpg_multi's (tnco's beside them)
+        dict(name="mh_sample_fused_split", kernel=mh.MH_FUSED_SPLIT, launches=multi_counts["mh_sample_fused_split"],
+             run=lambda: mh.launch_fused(mh.MH_FUSED_SPLIT, thr, words_split, n, SPLIT_ROUNDS, 12345),
+             plain=lambda: mh.mh_fused_plain(12345, thr, words_split, n, SPLIT_ROUNDS), plain_chains=SPLIT_CHAINS,
+             reps=10, bytes=2 * SPLIT_CHAINS * w * 4 + thr.numel() * 4, step_ops=SPLIT_ROUNDS * SPLIT_CHAINS * K3_OPS,
+             serial_rounds=SPLIT_ROUNDS, graph=True),
         dict(name="mcpg_sweep", kernel=sw.MCPG_SWEEP, launches=fast_counts["mcpg_sweep"],
              run=lambda: sw.MCPG_SWEEP.launch(tables.nodes, thr1, thr2, tables.word_offsets, tables.word_entries, 0,
                                               None, 1, 777, 0.25 / 65536.0, words, B, w, n, S),
@@ -3406,7 +3533,8 @@ def main() -> int:
     ]
     kernels = []
     for row in rows:
-        ms = cuda_ms(row["run"], row["reps"])
+        t_row = time.perf_counter()
+        ms = graph_ms(row["run"], row["reps"]) if row.get("graph") else cuda_ms(row["run"], row["reps"])
         if "restore" in row:
             ms -= cuda_ms(row["restore"], row["reps"])
         plain_ms = cuda_ms(row["plain"], 1, warmup=False)  # slow; warmed up by the checks
@@ -3445,6 +3573,10 @@ def main() -> int:
                   f"{row['bytes'] / 1e6:.1f} MB of state and lists")
         if "plain_sweeps" in row:
             kernels[-1]["plain_sweeps"] = row["plain_sweeps"]
+        if "serial_rounds" in row:
+            kernels[-1].update(k3_serial(thr, n, row["serial_rounds"]))
+            print(f"  {row['name']}: serial floor {kernels[-1]['serial_floor_ms']:.4f} ms ({row['serial_rounds']} "
+                  f"rounds; a round {kernels[-1]['serial_round_us']} us, one chain's launches)")
         if row.get("chain_floor"):
             floor_ms = 1e3 * MH_ROUNDS * K11_CHAIN_ACCESSES * SMEM_LATENCY_CYCLES / BOOST_CLOCK_HZ
             print(f"  {row['name']}: chain floor {floor_ms:.4f} ms, assumed, not measured ({MH_ROUNDS} dependent "
@@ -3456,19 +3588,24 @@ def main() -> int:
         print(f"  {row['name']}: {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; dense bound "
               f"{kernels[-1].get('dense_bound_ms', bound_ms):.3f} ms); "
               f"plain {plain_ms:.1f} ms on {row['plain_chains']} chains", flush=True)
+        if row.get("graph"):  # K3's two rows
+            FORM_SECONDS["time"] = FORM_SECONDS.get("time", 0.0) + time.perf_counter() - t_row
+    print(f"  K2's ring checks and K3's two forms' checks and timings, wall seconds by phase: {FORM_SECONDS}, "
+          f"{sum(FORM_SECONDS.values()):.2f} s in all", flush=True)
     for k in kernels:
         k["l2a_dist_launches"] = dist_counts[k["name"]]
         k["mcpg_multi_launches"] = multi_counts[k["name"]]
-        if k["name"] == "mh_sample_fused":
+        if k["name"] == "mh_sample_fused_split":
             k["mcpg_multi_shapes"] = k3_shapes
+            k.update(k3_tnco)
+        if k["name"] == "mh_sample_fused":
+            k["runner_shape"] = k3_at["runner"]
         k["mcpg_batch_launches"] = batch_counts[k["name"]]
         k["baselines_launches"] = baseline_counts[k["name"]]
         k["runners_launches"] = runner_counts[k["name"]]
         k["pattern_i_launches"] = pattern_i_counts[k["name"]]
         k["tnco_launches"] = tnco_counts[k["name"]]
         k["tsp_launches"], k["l2o_launches"] = tsp_counts[k["name"]], l2o_counts[k["name"]]
-        if k["name"] == "mh_sample_fused":
-            k.update(k3_tnco)
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

@@ -20,14 +20,27 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB, the dynamic shared memory a bloc
 
 __host__ __device__ inline int smem_stride(int W) { return W | 1; }
 
-// Copies the block's chains between global [B, W] and shared memory.
+// Copies the block's chains between global [B, W] and shared memory. Each
+// thread issues kInFlight loads before it stores any, so that a block whose
+// threads have many words each need not wait out a device-memory latency
+// per word.
+template <int kInFlight = 1>
 __device__ inline void load_chains(uint32_t* sm, const uint32_t* __restrict__ words,
                                    long long b0, int nb, int W) {
   const int stride = smem_stride(W);
   const uint32_t* src = words + b0 * W;
-  for (int i = threadIdx.x; i < nb * W; i += blockDim.x) {
-    const int c = i / W;
-    sm[c * stride + (i - c * W)] = src[i];
+  for (int i0 = threadIdx.x; i0 < nb * W; i0 += kInFlight * blockDim.x) {
+    uint32_t v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * blockDim.x;
+      v[u] = i < nb * W ? src[i] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = i0 + u * blockDim.x, c = i / W;
+      if (i < nb * W) sm[c * stride + (i - c * W)] = v[u];
+    }
   }
   __syncthreads();
 }

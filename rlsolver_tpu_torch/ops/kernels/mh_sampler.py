@@ -28,15 +28,20 @@ a u16 uniform from the low 16 bits, accepted when u16 < threshold[cur].
     Both are bit-exact with their JAX kernels fed the same draws.
 
 On a CUDA tensor each wrapper launches its kernel (`csrc/mh_sampler.cu`);
-on a CPU tensor it runs the plain PyTorch version. K11 and K12 run one ring
-kernel, which stages the (node, u) or (node, acc2) stream through a ring in
-shared memory, one bulk copy per round row of its chain tile, so the rows
-must be 16-byte aligned and a multiple of 16 bytes apart (`bulk_rows` pads
-them). The ring of 4 stages fits beside a tile of 64 chains up to W = 651
-words (N = 20,832); beyond, the tile halves to 32 chains, then the stages
-halve (4 up to W = 1559, 2 up to 1687, 1 up to 1751), and up to W = 1815
-(N = 58,080), where the 32 chains' words alone fill a block's shared
-memory, the kernel reads the stream from device memory. None of K2, K11 and K12 is on a solver path, in this package
+on a CPU tensor it runs the plain PyTorch version. K3 has two forms, picked
+by `fused_form` from the shape: the chain form (a thread a chain) for many
+narrow chains, the split form (`split_lanes` lanes of a warp a chain, each
+lane applying the proposals on the words it owns) for few or wide ones.
+K2, K11 and K12 run one ring kernel, which stages the streams through a
+ring in shared memory, one bulk copy per round row of its chain tile, so
+the rows must be 16-byte aligned and a multiple of 16 bytes apart
+(`bulk_rows` pads them). K11's and K12's ring of 4 stages fits beside a
+tile of 64 chains up to W = 651 words (N = 20,832); beyond, the tile halves
+to 32 chains, then the stages halve (4 up to W = 1559, 2 up to 1687, 1 up
+to 1751), and up to W = 1815 (N = 58,080), where the 32 chains' words alone
+fill a block's shared memory, the kernel reads the streams from device
+memory. K2's smaller ring (one stream, stages of 8 rounds) keeps 64 chains
+up to W = 875. None of K2, K11 and K12 is on a solver path, in this package
 or the JAX one.
 """
 
@@ -51,11 +56,15 @@ from rlsolver_tpu_torch.ops.kernels.build import Kernel, check_cuda_tensor, regi
 from rlsolver_tpu_torch.ops.kernels.codec import num_words, pack_bits, unpack_bits
 
 MH_STREAM = register(Kernel(
-    "mh_sample_stream", "mh_sampler.cu", "mh_stream", "ppiii",
+    "mh_sample_stream", "mh_sampler.cu", "mh_stream", "ppiiii",
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:327 _mh_stream_kernel",
 ))
 MH_FUSED = register(Kernel(
     "mh_sample_fused", "mh_sampler.cu", "mh_fused", "ppiiiiu",
+    replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:403 _mh_fused_kernel",
+))
+MH_FUSED_SPLIT = register(Kernel(
+    "mh_sample_fused_split", "mh_sampler.cu", "mh_fused_split", "ppiiiiui",
     replaces="rlsolver_tpu/ops/pallas/mh_sampler.py:403 _mh_fused_kernel",
 ))
 MH_ONEHOT = register(Kernel(
@@ -69,6 +78,14 @@ MH_PACKED = register(Kernel(
 
 WIDE_NODES = 1 << 15
 MASK32 = 0xFFFFFFFF
+# K3's forms by shape (scripts/torch_mh_tile.py --k3; PERF.md). The chain
+# form runs where its 128-chain blocks leave room for six an SM (at most
+# CHAIN_FORM_WORDS words a chain) and the chains are at least CHAIN_PER_SM
+# an SM; the split form elsewhere, with SPLIT_LANES[i][1] lanes a chain up
+# to SPLIT_LANES[i][0] words, 32 beyond.
+CHAIN_FORM_WORDS = 75
+CHAIN_PER_SM = 128
+SPLIT_LANES = ((16, 8), (128, 16))
 
 
 def _to_int32(w: torch.Tensor) -> torch.Tensor:
@@ -115,14 +132,15 @@ def mh_stream_plain(stream: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
 
 
 def mh_sample_stream(stream: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
-    """Run the R rounds of `stream` [R, B] on chains bits bool [B, N]."""
+    """Run the R rounds of `stream` [R, B] on chains bits bool [B, N]. On
+    the card the stream's rows are padded by `bulk_rows` as K12's are."""
     b, n = bits.shape
     words = pack_bits(bits)
-    if words.is_cuda:
-        check_cuda_tensor(stream, "stream", torch.int32, (stream.shape[0], b))
-        MH_STREAM.launch(stream, words, b, num_words(n), stream.shape[0])
-    else:
-        words = mh_stream_plain(stream, words)
+    if not words.is_cuda:
+        return unpack_bits(mh_stream_plain(stream, words), n)
+    check_cuda_tensor(stream, "stream", torch.int32, (stream.shape[0], b))
+    rows = bulk_rows(stream)
+    MH_STREAM.launch(rows, words, b, rows.shape[1], num_words(n), stream.shape[0])
     return unpack_bits(words, n)
 
 
@@ -162,17 +180,44 @@ def mh_fused_plain(seed: int, thr: torch.Tensor, words: torch.Tensor, n: int, nu
     return _to_int32(w)
 
 
+def fused_form(b: int, w: int, sm_count: int) -> str:
+    """K3's form for b chains of w words on a card of sm_count SMs: "chain"
+    (a thread a chain) or "split" (lanes of a warp a chain). The chain form
+    holds 128 chains a block: it loses where few chains leave its blocks'
+    serial rounds uncovered (a round's latency times R), and where wide
+    chains leave few blocks an SM."""
+    return "chain" if w <= CHAIN_FORM_WORDS and b >= CHAIN_PER_SM * sm_count else "split"
+
+
+def split_lanes(w: int) -> int:
+    """Lanes a chain of w words in K3's split form."""
+    return next((lanes for most, lanes in SPLIT_LANES if w <= most), 32)
+
+
+def fused_kernel(b: int, w: int, device: torch.device) -> Kernel:
+    """The kernel that `mh_sample_fused` launches for b chains of w words."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return MH_FUSED_SPLIT if fused_form(b, w, sms) == "split" else MH_FUSED
+
+
+def launch_fused(kernel: Kernel, thr: torch.Tensor, words: torch.Tensor, n: int, num_rounds: int, seed: int) -> None:
+    """K3 in the form of `kernel` (MH_FUSED or MH_FUSED_SPLIT, the latter with
+    `split_lanes` lanes a chain) on words int32 [B, W] on the card, in place."""
+    lanes = (split_lanes(words.shape[1]),) if kernel is MH_FUSED_SPLIT else ()
+    kernel.launch(thr, words, words.shape[0], words.shape[1], n, num_rounds, seed & MASK32, *lanes)
+
+
 def mh_sample_fused(seed: int, probs: torch.Tensor, bits: torch.Tensor, num_rounds: int) -> torch.Tensor:
     """`num_rounds` MH rounds on bits bool [B, N] with in-kernel random draws
-    keyed by `seed` (0 <= seed < 2^32)."""
+    keyed by `seed` (0 <= seed < 2^32). On the card, in the form that
+    `fused_form` picks for the shape."""
     b, n = bits.shape
     thr = fused_thresholds(probs)
     words = pack_bits(bits)
-    if words.is_cuda:
-        check_cuda_tensor(thr, "thresholds", torch.float32, (2, n))
-        MH_FUSED.launch(thr, words, b, num_words(n), n, num_rounds, seed & MASK32)
-    else:
-        words = mh_fused_plain(seed, thr, words, n, num_rounds)
+    if not words.is_cuda:
+        return unpack_bits(mh_fused_plain(seed, thr, words, n, num_rounds), n)
+    check_cuda_tensor(thr, "thresholds", torch.float32, (2, n))
+    launch_fused(fused_kernel(b, words.shape[1], words.device), thr, words, n, num_rounds, seed)
     return unpack_bits(words, n)
 
 
@@ -230,7 +275,7 @@ def _check_rounds(nodes, other, name, dtype, b):
 
 
 def bulk_rows(t: torch.Tensor) -> torch.Tensor:
-    """t [R, B] as rows that K11 and K12 copy in bulk, 16-byte aligned and a
+    """t [R, B] as rows that K2, K11 and K12 copy in bulk, 16-byte aligned and a
     multiple of 16 bytes apart: t itself where B % 4 == 0 and t is aligned,
     else a copy into a `torch.empty` buffer [R, B_pad], B_pad the next
     multiple of 4, whose extra columns no chain reads."""

@@ -123,3 +123,51 @@ def test_budgeted_chain_stationary_marginal():
     res = t_sampling.metropolis_bitflip_chain(gen, torch.from_numpy(PROBS8), bits, 100)
     assert res.num_accepted >= 2048 * 100 or res.num_rounds == 500
     np.testing.assert_allclose(res.samples.float().mean(0).numpy(), PROBS8, atol=0.05)
+
+
+def _word_owned(words, n, word, bit, accept, lanes):
+    """The split form's schedule on int32 words [B, W]: lane l applies, in
+    round order, the proposals (word, bit) [R, B] whose word it owns (word %
+    lanes == l; a word outside [0, W) is a no-op), the lanes one after
+    another, the last first. accept(r, cur) gives round r's 0/1 decisions."""
+    w = words.long() & tmh.MASK32
+    rows = torch.arange(w.shape[0])
+    for lane in reversed(range(lanes)):
+        for r in range(word.shape[0]):
+            own = ((word[r] % lanes == lane) & (word[r] < w.shape[1])).long()
+            wr = word[r].clamp(max=w.shape[1] - 1)
+            cur_w = w[rows, wr]
+            w[rows, wr] = cur_w ^ ((accept(r, (cur_w >> bit[r]) & 1) & own) << bit[r])
+    return tmh._to_int32(w)
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("b", [1, 33])
+@pytest.mark.parametrize("n", [250, 2000, tmh.WIDE_NODES + 3])
+@pytest.mark.parametrize("kind", ["fused", "stream"])
+def test_word_owned_split_is_the_sequential_chain(kind, n, b, lanes):
+    rounds, rng = 37, np.random.default_rng(n + b)
+    words = codec.pack_bits(torch.from_numpy(rng.random((b, n)) < 0.5))
+    if kind == "fused":
+        thr = tmh.fused_thresholds(torch.from_numpy(rng.uniform(0.05, 0.95, n).astype(np.float32)))
+        props = [tmh.fused_proposal(77, r, torch.arange(b), n) for r in range(rounds)]
+        node = torch.stack([p[0] for p in props])
+        u = torch.stack([p[1] for p in props]).float()
+        out = _word_owned(words, n, node >> 5, node & 31, lambda r, cur: (u[r] < thr[cur, node[r]]).long(), lanes)
+        np.testing.assert_array_equal(out.numpy(), tmh.mh_fused_plain(77, thr, words, n, rounds).numpy())
+    else:  # K2's stream, words past W among the proposals
+        s = torch.from_numpy(rng.integers(0, (codec.num_words(n) + 2) << 7, (rounds, b)).astype(np.int32)).long()
+        out = _word_owned(words, n, s >> 7, (s >> 2) & 31, lambda r, cur: (s[r] >> cur) & 1, lanes)
+        np.testing.assert_array_equal(out.numpy(), tmh.mh_stream_plain(s.int(), words).numpy())
+
+
+@pytest.mark.parametrize("b,n,form,lanes", [
+    (128, 6770, "split", 32),  # TNCO's MCPG (32 x 4 chains, Sycamore N53's 12-layer shape)
+    (8192, 2000, "split", 16), (8192, 800, "split", 16), (8192, 250, "split", 8),  # mcpg_multi's 256 x 32
+    (24576, 10000, "split", 32),  # gset_70's 768 x 32 (W70-like)
+    (458752, 2000, "chain", 0), (1 << 20, 2000, "chain", 0),  # the MCPG runner's 2048 x 224, gset_22's 2048 x 512
+])
+def test_fused_form_by_shape(b, n, form, lanes):
+    w = codec.num_words(n)
+    assert tmh.fused_form(b, w, 132) == form
+    assert form == "chain" or tmh.split_lanes(w) == lanes
