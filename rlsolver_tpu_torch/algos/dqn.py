@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from rlsolver_tpu_torch.capture import CapturedCall
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv, SpinSystemParams, SpinSystemState
@@ -153,6 +154,9 @@ def _epsilon_f32(cfg: DQNConfig, step: int) -> float:
     return float(np.float32(cfg.eps_start + frac * float(np.float32(cfg.eps_end - cfg.eps_start))))
 
 
+ROLLOUT_GRAPH_STEPS = 100  # greedy rollout steps one CUDA graph replays
+
+
 class DQNAgent:
     """MPNN Q-network + double-DQN training over a SpinSystemEnv."""
 
@@ -163,6 +167,7 @@ class DQNAgent:
         self.model = MPNN(env.config.num_observables, cfg.features, cfg.n_layers, dtype=cfg.dtype,
                           device=self.device)
         self.last_eval_state: Optional[SpinSystemState] = None
+        self._rollout_call: Optional[CapturedCall] = None
 
     def q_values(self, params: Params, obs: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         return functional_call(self.model, params, (obs, adj))
@@ -263,7 +268,7 @@ class DQNAgent:
                     target_params = params
                 history["loss"].append(float(loss))
 
-            if state.step_count >= env.max_steps:
+            if (step + 1) % env.max_steps == 0:  # every episode runs max_steps steps from its reset
                 history["best_cut"].append(float(state.best_score.max()))
                 episode += 1
                 params_env = env.params_from_graph(graph_sampler(episode), device=dev)
@@ -325,7 +330,7 @@ class DQNAgent:
 
             best_cut = torch.maximum(state.best_cut, env_state.best_score.max())
             graph_idx, obs = state.graph_idx, next_obs
-            if env_state.step_count >= env.max_steps:  # episode boundary: the next instance
+            if (state.step_idx + 1) % env.max_steps == 0:  # episode boundary (each runs max_steps steps): the next instance
                 graph_idx = (graph_idx + 1) % num_graphs
                 env_state, obs = env.reset(pes[graph_idx], generator=gen,
                                            spins=None if draws is None else draws.spins)
@@ -424,14 +429,43 @@ class DQNAgent:
         return best_params, history
 
     # ------------------------------------------------------------- inference
-    def _greedy_rollout(self, params: Params, pe: SpinSystemParams, generator, spins=None) -> SpinSystemState:
+    def _greedy_steps(self, params: Params, pe: SpinSystemParams, state: SpinSystemState, obs: torch.Tensor,
+                      steps: int):
+        env = self.env
+        for _ in range(steps):
+            actions = self.act(params, obs, pe.adj, env.allowed_action_mask(state))
+            state, obs, _, _ = env.step(pe, state, actions)
+        return state, obs
+
+    def _rollout_block(self, params: Params) -> CapturedCall:
+        """ROLLOUT_GRAPH_STEPS greedy steps over the flat inputs (*state,
+        obs, *pe, *params) -> (*state, obs). The step count rides in the
+        state on the device, so one graph serves every offset of a rollout."""
+        if self._rollout_call is None:
+            names, ns, npe = list(params), len(SpinSystemState._fields), len(SpinSystemParams._fields)
+
+            def block(*flat):
+                state, obs = self._greedy_steps(dict(zip(names, flat[ns + 1 + npe:])),
+                                                SpinSystemParams(*flat[ns + 1:ns + 1 + npe]),
+                                                SpinSystemState(*flat[:ns]), flat[ns], ROLLOUT_GRAPH_STEPS)
+                return (*state, obs)
+            self._rollout_call = CapturedCall(block)
+        return self._rollout_call
+
+    def _greedy_rollout(self, params: Params, pe: SpinSystemParams, generator, spins=None,
+                        cuda_graph: bool = True) -> SpinSystemState:
         env = self.env
         params = {k: v.to(self.cfg.dtype) for k, v in params.items()}  # cast once, not at every step
         state, obs = env.reset(pe, generator=generator, spins=spins)
-        for _ in range(env.max_steps):
-            actions = self.act(params, obs, pe.adj, env.allowed_action_mask(state))
-            state, obs, _, _ = env.step(pe, state, actions)
-        return state
+        steps = env.max_steps
+        if cuda_graph and obs.is_cuda and steps >= ROLLOUT_GRAPH_STEPS:
+            block = self._rollout_block(params)
+            for _ in range(steps // ROLLOUT_GRAPH_STEPS):
+                *state, obs = block(*state, obs, *pe, *params.values())
+            # the graph's outputs are overwritten by its next replay
+            state, obs = SpinSystemState(*(x.clone() for x in state)), obs.clone()
+            steps %= ROLLOUT_GRAPH_STEPS
+        return self._greedy_steps(params, pe, state, obs, steps)[0]
 
     def evaluate(self, params: Params, graph: Graph, generator: Optional[torch.Generator] = None,
                  num_envs: Optional[int] = None) -> float:
@@ -445,17 +479,18 @@ class DQNAgent:
         return max(float(self._greedy_rollout(params, pe, gen).best_score.max()) for _ in range(chunks))
 
     def evaluate_scan(self, params: Params, graph: Graph, generator: Optional[torch.Generator] = None,
-                      num_restarts: int = 1, spins=None) -> float:
+                      num_restarts: int = 1, spins=None, cuda_graph: bool = True) -> float:
         """Greedy rollouts over `max_steps` from `num_restarts` resets drawn
         from `generator` (or the injected reset spins, [R, B, N]); the best
         cut found. The final env state of the best restart stays in
-        `self.last_eval_state`."""
+        `self.last_eval_state`. On the card the rollout replays CUDA graphs
+        of ROLLOUT_GRAPH_STEPS steps unless `cuda_graph=False`."""
         pe = self.env.params_from_graph(graph, device=self.device)
         gen = generator if generator is not None else torch.Generator(device=self.device).manual_seed(0)
         restarts = [None] * num_restarts if spins is None else list(spins)
         best, best_state = -np.inf, None
         for s in restarts:
-            state = self._greedy_rollout(params, pe, gen, spins=s)
+            state = self._greedy_rollout(params, pe, gen, spins=s, cuda_graph=cuda_graph)
             v = float(state.best_score.max())
             if v > best:
                 best, best_state = v, state

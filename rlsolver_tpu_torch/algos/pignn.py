@@ -21,7 +21,10 @@ The parameters are a dict {"gcn.gcn0.kernel", ..., "gcn.out.bias",
 "embed", "skip"} (`convert.gcn_state_dict` of the JAX tree). The cell
 variant trains G instances at once on parameters with a leading instance
 axis, tracks each instance's best probabilities on the device and reads
-the host once per `chunk` steps, as the JAX package does.
+the host once per `chunk` steps, as the JAX package does; on the card its
+steps replay as CUDA graphs of `GRAPH_STEPS` (`capture.CapturedCall`, each
+step's Adam bias corrections an input) unless `train_pignn_cell(...,
+cuda_graph=False)`.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rlsolver_tpu_torch.capture import CapturedCall
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.models.gcn import GCN, gcn_apply, normalized_adjacency
@@ -39,6 +43,7 @@ from rlsolver_tpu_torch.ops import cut as cut_ops
 from rlsolver_tpu_torch.optim import ClippedAdam
 
 Params = Dict[str, torch.Tensor]
+GRAPH_STEPS = 100  # the cell's training steps one CUDA graph replays
 
 
 @dataclasses.dataclass
@@ -120,7 +125,7 @@ def solve_maxcut_pignn(graph: Graph, cfg: PIGNNConfig = PIGNNConfig(), device=No
 
 
 def train_pignn_cell(graphs: Sequence[Graph], cfg: PIGNNConfig = PIGNNConfig(), chunk: int = 500, device=None,
-                     params: Optional[Params] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     params: Optional[Params] = None, cuda_graph: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trains PI-GNN on a cell of same-size instances at once -> (best probs
     [G, N], best loss [G]). Parameters, Adam's moments and the adjacencies
     carry a leading instance axis (the instances share no parameter, so the
@@ -144,23 +149,31 @@ def train_pignn_cell(graphs: Sequence[Graph], cfg: PIGNNConfig = PIGNNConfig(), 
     opt = ClippedAdam(list(params.values()), cfg.lr, max_norm=None)
     best_loss = torch.full((g_cnt,), float("inf"), device=dev)
     best_probs = torch.zeros(g_cnt, n, device=dev)
-    prev = np.full((g_cnt,), np.inf)
-    for _ in range(max(1, cfg.max_steps // chunk)):
-        for _ in range(chunk):
+
+    def steps(best_loss, best_probs, corr):  # one step per row of the bias corrections corr [K, 2]
+        for i in range(corr.shape[0]):
             opt.zero_grad()
             probs = pignn_probs(params, a_norm, len(cfg.hidden))
             loss = maxcut_loss(probs, adj, deg_w, total_w)  # [G]
             loss.sum().backward()
-            opt.step()
+            opt.step(corr=corr[i])
             with torch.no_grad():
                 better = loss < best_loss - cfg.tol
                 best_loss = torch.where(better, loss, best_loss)
                 best_probs = torch.where(better[:, None], probs, best_probs)
+        return best_loss, best_probs
+
+    block = GRAPH_STEPS if chunk % GRAPH_STEPS == 0 else chunk
+    call = CapturedCall(steps, cuda_graph, restore=opt.state_tensors())
+    prev = np.full((g_cnt,), np.inf)
+    for _ in range(max(1, cfg.max_steps // chunk)):
+        for _ in range(chunk // block):
+            best_loss, best_probs = call(best_loss, best_probs, torch.stack([opt.corrections() for _ in range(block)]))
         cur = best_loss.cpu().numpy()
         if np.all(cur > prev - cfg.tol):  # no instance improved this chunk
             break
         prev = cur
-    return best_probs, best_loss
+    return best_probs.clone(), best_loss.clone()  # a graph's outputs are overwritten by its next replay
 
 
 def solve_maxcut_pignn_cell(graphs: Sequence[Graph], cfg: PIGNNConfig = PIGNNConfig(), chunk: int = 500,

@@ -12,16 +12,22 @@ that function, so the schedule is built on the host, value for value.
 
 Every annealer takes its run's randomness as an argument (`AnnealDraws`,
 `SetCoverDraws`) in place of its generator's, so that a run can be held
-against the JAX package's with JAX's draws."""
+against the JAX package's with JAX's draws.
+
+On the card the maxcut annealer's loop is replayed as CUDA graphs of
+`GRAPH_STEPS` steps (`capture.CapturedCall`, one graph per chain and node
+count, shared by every instance of that shape); `anneal_chains(...,
+cuda_graph=False)` gives the eager loop, which the graphs follow bit for bit."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from rlsolver_tpu_torch.capture import CapturedCall
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.ops import cut as cut_ops
@@ -52,27 +58,47 @@ def temperatures(cfg: SAConfig) -> np.ndarray:
     return np.float32(cfg.init_temperature) * powers
 
 
-def anneal_chains(cg: cut_ops.CutGraph, xs: torch.Tensor, nodes: torch.Tensor, u: torch.Tensor,
-                  temps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The annealing loop from start bits xs [B, N], one step per row of
-    nodes / u [T, B] at temps [T] -> (best signs [B, N], best cuts [B])."""
-    s = cut_ops.signs_from_bits(xs)
-    gains = cut_ops.flip_gains_dense(xs, cg)
-    vs = cut_ops.cut_dense(xs, cg)
-    best_s, best_vs = s.clone(), vs
-    rows = torch.arange(xs.shape[0], device=xs.device)
+GRAPH_STEPS = 250  # annealing steps one CUDA graph replays
+_GRAPHS: Dict[tuple, CapturedCall] = {}
+
+
+def _anneal_steps(adj, s, gains, vs, best_s, best_vs, nodes, u, temps):
+    """One step per row of nodes / u [T, B] at temps [T]; `s` is written in
+    place. -> (s, gains, vs, best_s, best_vs)."""
+    rows = torch.arange(s.shape[0], device=s.device)
     for t in range(nodes.shape[0]):
         v = nodes[t]
         g = gains[rows, v]
         accept = (u[t] < torch.exp(torch.clamp(g / temps[t], max=0.0))) | (g > 0)
         s_a = s[rows, v]
-        gains = gains + -2.0 * (s_a * accept)[:, None] * s * cg.adj[v]
+        gains = gains + -2.0 * (s_a * accept)[:, None] * s * adj[v]
         gains[rows, v] = torch.where(accept, -g, g)
         s[rows, v] = torch.where(accept, -s_a, s_a)
         vs = vs + torch.where(accept, g, 0.0)
         better = vs > best_vs
         best_vs = torch.where(better, vs, best_vs)
         best_s = torch.where(better[:, None], s, best_s)
+    return s, gains, vs, best_s, best_vs
+
+
+def anneal_chains(cg: cut_ops.CutGraph, xs: torch.Tensor, nodes: torch.Tensor, u: torch.Tensor,
+                  temps: torch.Tensor, cuda_graph: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The annealing loop from start bits xs [B, N], one step per row of
+    nodes / u [T, B] at temps [T] -> (best signs [B, N], best cuts [B]). On
+    the card the whole blocks of GRAPH_STEPS steps replay as CUDA graphs
+    unless `cuda_graph=False`; the rest runs eagerly."""
+    s, vs = cut_ops.signs_from_bits(xs), cut_ops.cut_dense(xs, cg)
+    state = (s, cut_ops.flip_gains_dense(xs, cg), vs, s.clone(), vs)
+    steps, done = nodes.shape[0], 0
+    if cuda_graph and xs.is_cuda:
+        key = (tuple(xs.shape), str(xs.device))
+        block = _GRAPHS.setdefault(key, CapturedCall(_anneal_steps))
+        for done in range(0, steps - steps % GRAPH_STEPS, GRAPH_STEPS):
+            state = block(cg.adj, *state, nodes[done:done + GRAPH_STEPS], u[done:done + GRAPH_STEPS],
+                          temps[done:done + GRAPH_STEPS])
+        done = steps - steps % GRAPH_STEPS
+        state = tuple(x.clone() for x in state)  # the graph's outputs are overwritten by its next replay
+    _, _, _, best_s, best_vs = _anneal_steps(cg.adj, *state, nodes[done:], u[done:], temps[done:])
     return best_s, best_vs
 
 

@@ -32,7 +32,16 @@ The JAX state arrives as numpy arrays (the caller converts with
     `RunCspNetwork` and the REINFORCE critic become their modules' state
     dicts (`attention_tsp_state_dict`, `solver_lstm_state_dict`,
     `runcsp_state_dict`, `critic_state_dict`), and DCS's `{"gen": tree,
-    "f", "log_step"}` its parameter dict (`dcs_params`).
+    "f", "log_step"}` its parameter dict (`dcs_params`);
+  * the RL+OR scorers (`BranchNet`'s and `ScorePolicy`'s nets), the
+    off-policy networks (`MLP`, `_TwinCritic`, `_GaussianActor`,
+    `QEmbedTwin`) and the multi-agent ones (`AgentQNet`, `QMixer`, MAPPO's
+    actor and critic, MADDPG's stacked per-agent actors and critics, their
+    leading agent axis kept) become their modules' state dicts
+    (`flax_state_dict`: the port keeps flax's names); VDN/QMIX's `{"q":
+    tree, "mix": tree}` becomes one `MixParams` state dict
+    (`value_mix_state_dict`), and its optax state converts with
+    `adam_state(..., tree_fn=value_mix_state_dict)`.
 """
 
 from __future__ import annotations
@@ -55,7 +64,17 @@ def policy_state_dict(params) -> Dict[str, torch.Tensor]:
 
 
 def flax_state_dict(params) -> Dict[str, torch.Tensor]:
-    """A flax tree `{"params": {...}}` (numpy leaves) -> {"a.b.kernel": tensor}."""
+    """A flax tree `{"params": {...}}` (numpy leaves) -> {"a.b.kernel": tensor}.
+
+    It is also the state dict of every network whose module names its
+    parameters after the flax tree: `BranchNet`'s and `ScorePolicy`'s `_Net`
+    (`Dense_0` .. `Dense_2`, the port's `branching.ScoreMLP`); the
+    off-policy `MLP` (`Dense_0` .. `Dense_2`), `_TwinCritic`
+    (`q1.Dense_0.kernel`, ...), `_GaussianActor` (`Dense_0`, `Dense_1`,
+    `mu`, `log_std`) and `QEmbedTwin` (`Embed_0.embedding`, `Dense_0` ..
+    `Dense_2`); `AgentQNet`, `QMixer` (`hw1`, `hb1`, `hw2`, `hb2h`, `hb2`),
+    MAPPO's actor and critic, and MADDPG's vmapped actors and critics
+    (every leaf [n_agents, ...], the port's `StackedMLP`)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -80,10 +99,11 @@ def _find_adam_state(opt_state):
     return None
 
 
-def adam_state(opt_state, names: Optional[Sequence[str]] = None) -> Dict[str, object]:
+def adam_state(opt_state, names: Optional[Sequence[str]] = None, tree_fn=None) -> Dict[str, object]:
     """optax Adam state -> `ClippedAdam` state dict `{"count": int, "mu":
     [tensor], "nu": [tensor]}`, one tensor per parameter `names` lists
-    (default: MCPG's policy logits, or the one array the params are)."""
+    (default: MCPG's policy logits, or the one array the params are), the
+    moments' trees flattened by `tree_fn` (default `flax_state_dict`)."""
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) found in the optimizer state")
@@ -92,7 +112,8 @@ def adam_state(opt_state, names: Optional[Sequence[str]] = None) -> Dict[str, ob
     elif names is None:
         mu, nu = [policy_state_dict(adam.mu)["logits"]], [policy_state_dict(adam.nu)["logits"]]
     else:
-        fm, fn = flax_state_dict(adam.mu), flax_state_dict(adam.nu)
+        tree_fn = tree_fn if tree_fn is not None else flax_state_dict
+        fm, fn = tree_fn(adam.mu), tree_fn(adam.nu)
         mu, nu = [fm[k] for k in names], [fn[k] for k in names]
     return {"count": int(np.asarray(adam.count)), "mu": mu, "nu": nu}
 
@@ -192,3 +213,27 @@ def dcs_params(params) -> Dict[str, torch.Tensor]:
     for k in ("f", "log_step"):
         out[k] = torch.from_numpy(np.array(params[k], np.float32))
     return out
+
+
+def value_mix_state_dict(params) -> Dict[str, torch.Tensor]:
+    """VDN/QMIX's `{"q": tree, "mix": tree}` (no "mix" for VDN) -> the
+    port's `MixParams` state dict {"q.Dense_0.kernel", ..., "mix.hw1.kernel", ...}."""
+    out = {}
+    for part in ("q", "mix"):
+        if part in params:
+            out.update({f"{part}.{k}": v for k, v in flax_state_dict(params[part]).items()})
+    return out
+
+
+def load_npz_tree(path: str):
+    """A tree saved by `np.savez` under '/'-joined keys ("params/Dense_0/kernel")
+    as the nested dict of numpy arrays it came from."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree

@@ -102,7 +102,7 @@ class SpinSystemState(NamedTuple):
     best_score: torch.Tensor  # f32 [B]
     best_spins: torch.Tensor  # f32 [B, N]
     time_since_flip: torch.Tensor  # f32 [B, N]
-    step_count: int
+    step_count: torch.Tensor  # int64 0-d, on the device (a CUDA graph of steps serves every offset)
     hist_h1: torch.Tensor  # int64 [B, H] ring of visited-state hashes
     hist_h2: torch.Tensor  # int64 [B, H]
 
@@ -194,7 +194,7 @@ class SpinSystemEnv:
             best_score=score,
             best_spins=spins,
             time_since_flip=torch.zeros(b, n, dtype=torch.float32, device=dev),
-            step_count=0,
+            step_count=torch.zeros((), dtype=torch.int64, device=dev),
             hist_h1=hist_h1,
             hist_h2=hist_h2,
         )
@@ -237,10 +237,9 @@ class SpinSystemEnv:
         if cfg.stag_punishment is not None or cfg.basin_reward is not None:
             h1, h2 = self._state_hash(params, spins)
             seen = ((state.hist_h1 == h1[:, None]) & (state.hist_h2 == h2[:, None])).any(dim=1)
-            slot = (state.step_count + 1) % self.history_capacity
-            hist_h1, hist_h2 = state.hist_h1.clone(), state.hist_h2.clone()
-            hist_h1[:, slot] = h1
-            hist_h2[:, slot] = h2
+            slot = ((state.step_count + 1) % self.history_capacity).view(1)
+            hist_h1 = state.hist_h1.index_copy(1, slot, h1[:, None])
+            hist_h2 = state.hist_h2.index_copy(1, slot, h2[:, None])
             if cfg.stag_punishment is not None:
                 rew = rew - torch.where(seen, cfg.stag_punishment, 0.0)
             if cfg.basin_reward is not None:
@@ -256,13 +255,13 @@ class SpinSystemEnv:
 
         step_count = state.step_count + 1
         done_now = step_count >= self.max_steps
-        if cfg.reward_signal == RewardSignal.SINGLE and done_now:
-            rew = score - state.init_score
+        if cfg.reward_signal == RewardSignal.SINGLE:
+            rew = torch.where(done_now, score - state.init_score, rew)
         if cfg.norm_rewards:
             rew = rew * _recip(n)
 
         tsf = state.time_since_flip + 1.0 / self.max_steps
-        tsf[rows, actions] = 0.0
+        tsf[rows, actions] = torch.zeros_like(delta)  # a tensor: a host scalar would be copied in (no graph capture)
 
         new_state = SpinSystemState(
             spins=spins,
@@ -277,7 +276,7 @@ class SpinSystemEnv:
             hist_h1=hist_h1,
             hist_h2=hist_h2,
         )
-        done = torch.full((b,), done_now, dtype=torch.bool, device=actions.device)
+        done = done_now.expand(b)
         return new_state, self.observation(params, new_state), rew, done
 
     # ----------------------------------------------------------- observation
@@ -299,7 +298,7 @@ class SpinSystemEnv:
         # 1 - count * f32(1/N) and (step - max_steps) * f32(1/horizon) + 1,
         # each rounded once (exact in float64 before the rounding)
         greedy_avail = (1.0 - (state.gains <= 0.0).sum(dim=1).double() * _recip(n)).to(torch.float32)
-        imman = max(0.0, float(np.float32((state.step_count - self.max_steps) * _recip(self.horizon) + 1.0)))
+        imman = ((state.step_count - self.max_steps).double() * _recip(self.horizon) + 1.0).float().clamp_min(0.0)
         shape = spin_obs.shape
         return torch.stack(
             [
@@ -309,7 +308,7 @@ class SpinSystemEnv:
                 dist_score[:, None].expand(shape),
                 dist_state[:, None].expand(shape),
                 greedy_avail[:, None].expand(shape),
-                torch.full(shape, imman, dtype=torch.float32, device=spin_obs.device),
+                imman.expand(shape),
             ],
             dim=-1,
         )
