@@ -129,7 +129,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                split form, which `fused_form` picks at 8192 chains), equal
                its plain version on the first 256 chains at each problem's
                (N, 8192 chains, MH rounds), timed there beside the chain
-               form, and every best score its float64 host re-score; then
+               form, and every best score its float64 host re-score (the
+               edge-pair sweep replays chunks of 512 edges as CUDA graphs,
+               held bit for bit to its eager loop over two chunks); then
                the device time by kernel of one QUBO and
                one MaxSAT round (`run_mcpg_multi`);
      mcpg_batch — `solve_maxcut_mcpg_batched` with DIST_TABLE's MCPG protocol
@@ -138,7 +140,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                BA_1000_ID0..9, each family in one call: best cuts equal to
                their host re-scores, printed
                beside the JAX run's (results_quality/dist_table.csv); the
-               device time of one BA_1000 round; then one round of MCPG's
+               device time of one BA_1000 round (its MH rounds and each
+               sweep replayed as CUDA graphs) and the graphed round bit for
+               bit equal to the eager loops'; then one round of MCPG's
                colored sweep mode on G22-like beside one of the sequential
                mode, their best cuts within 2% (`run_mcpg_batch`);
      baselines — DIST_TABLE's classical columns, ISCO and PI-GNN at
@@ -297,6 +301,26 @@ Phases (each prints its seconds; any failure exits non-zero):
                f32 rounding, rewards summing to the float64 asset change
                within 1e-3); seconds per update and the idle share of one
                update for each agent; no kernel launched (`run_agents`);
+     parallel — the data-parallel layer (`run_parallel`): world size 1 over
+               NCCL in this process, then `dryrun_multichip(2)`, whose two
+               spawned ranks share the card over gloo (the backend chosen by
+               `parallel.launch.choose_backend`, printed) and then run the
+               forms at world size 2: solve_tnco_mcpg_sharded at the tnco
+               phase's Sycamore N53 shape (4 rounds, the chains sharded, the
+               MH scan), train_ppo_sharded at PPOConfig's widths on G22-like
+               (the ppo phase's 40 iterations), data-parallel L2A at
+               L2AConfig's widths on G22-like (the l2a phase's depth cut;
+               K10 on every rank, its plain version made to raise) and POMO
+               steps at POMOConfig's widths (graphed; at world size 2 also
+               eager); world size 1 equal to the unsharded runs bit for bit;
+               the replicated state equal across ranks bit for bit after
+               every step, every reduced metric the host's reduction of the
+               ranks' own values and the one the solver returned, every best
+               cost or cut its host re-score, POMO's tour lengths within
+               1e-5 of the host's float64 re-score of its tours; K10 at a
+               rank's shard shape (1024 chains of G22-like) bit for bit;
+               s/step beside the unsharded step and one all-reduce of each
+               path's gradient buffer, over NCCL and over gloo;
   9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file; then the CLI's `main`
                in this process with `--alg l2a` and `--alg local_search` on
@@ -769,6 +793,7 @@ def run_l2a_dist(dev, errs: dict) -> dict:
 MULTI_CHAINS, MULTI_REPEATS = 256, 32  # mcpg_multi at full width: 8192 samples a round
 MULTI_ROUNDS = 2  # depth cut from MultiMCPGConfig's 64 rounds
 MULTI_PLAIN = 256  # of the 8192 chains, those K3's plain version checks
+MULTI_EDGE_CHUNKS = 2  # edge-pair sweep chunks held to the eager loop (graph against eager)
 # DIST_TABLE's MCPG protocol, as scripts/quality_table.py:159-165 runs it
 BATCH_CFG = dict(total_mcmc_num=256, repeat_times=32, num_ls=8, max_epoch_num=6, reset_epoch_num=64)
 BATCH_EPOCHS_1000 = 2  # BA_1000's depth cut from 6 epochs, to leave the script's time limit room
@@ -899,6 +924,22 @@ def run_mcpg_multi(dev, errs: dict) -> dict:
                   f"{ber(mimo.detect_zf(mimo_inst))}, MMSE {ber(mimo.detect_mmse(mimo_inst))}")
         del chains, words, out, plain
 
+    # the edge-pair sweep's chunk graphs against its eager loop, on the first
+    # MULTI_EDGE_CHUNKS chunks (one graph replayed at each chunk's edges)
+    from rlsolver_tpu_torch.ops import sweeps as sw_ops
+
+    edges = sw_ops.EdgeSweepData.build(g, dev)
+    edges_eager = edges._replace(graphs=sw_ops.Graphs(enabled=False))
+    bits = torch.rand(MULTI_CHAINS * MULTI_REPEATS, g.num_nodes, generator=gen, device=dev) < 0.5
+    u = torch.rand(MULTI_EDGE_CHUNKS * sw_ops.EDGE_CHUNK, 4, bits.shape[0], generator=gen, device=dev)
+    part = [edges._replace(ends=edges.ends[: u.shape[0]]), edges_eager._replace(ends=edges.ends[: u.shape[0]])]
+    graphed, eager = (sw_ops.edge_pair_sweep(None, bits, d, 1, 0.1, noise=u) for d in part)
+    if not torch.equal(graphed, eager):
+        raise AssertionError("mcpg_multi: the edge-pair sweep's chunk graphs differ from its eager loop")
+    print(f"  the edge-pair sweep's chunk graphs equal its eager loop bit for bit over the first "
+          f"{u.shape[0]} edges of G22like ({MULTI_EDGE_CHUNKS} chunks of {sw_ops.EDGE_CHUNK})", flush=True)
+    del edges, edges_eager, part, bits, u
+
     # where one round's device time goes: the dense-field QUBO and MaxSAT
     for name, prob, _, _ in (problems[1], problems[3]):
         policy, optimizer = mm.new_policy(prob.num_vars, cfg, dev)
@@ -922,6 +963,7 @@ def run_mcpg_batch(dev) -> dict:
     G22-like beside one of the sequential mode. Returns the launches."""
     from rlsolver_tpu_torch.algos import mcpg_batch as mb
     from rlsolver_tpu_torch.algos.mcpg import MCPGConfig, solve_maxcut_mcpg
+    from rlsolver_tpu_torch.capture import Graphs
     from rlsolver_tpu_torch.core.generate import build_g22_like, graph_from_name
     from rlsolver_tpu_torch.ops.kernels import build
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
@@ -964,14 +1006,31 @@ def run_mcpg_batch(dev) -> dict:
     best_vs = mb.cut_values_stacked(best_xs, sg)
     logits, optimizer = mb.new_logits(10, 1000, cfg, dev)
 
+    loops = Graphs()
+
     def batch_round():
-        mh_b, ls_b, cuts_b = mb.sample_round(gen, logits, start, sg, cfg)
+        mh_b, ls_b, cuts_b = mb.sample_round(gen, logits, start, sg, cfg, graphs=loops)
         mb.reduce_round(ls_b, cuts_b, best_xs.clone(), best_vs.clone(), cfg.repeat_times)
         mb.update_round(logits, optimizer, mh_b, cuts_b, sg, cfg.sample_epoch_num)
 
     batch_round()
-    profile_device(f"one mcpg_batch round on BA_1000_ID0..9 (10 x {start.shape[1]} chains)", batch_round)
-    del sg, start
+    profile_device(f"one mcpg_batch round on BA_1000_ID0..9 (10 x {start.shape[1]} chains, MH rounds and sweeps "
+                   f"as CUDA graphs)", batch_round)
+    # the graphed MH rounds and sweeps against the eager loops, from one generator state
+    state = gen.get_state()
+    with torch.no_grad():
+        graphed = mb.sample_round(gen, logits, start, sg, cfg, graphs=loops)
+        gen.set_state(state)
+        t_eager = time.time()
+        eager = mb.sample_round(gen, logits, start, sg, cfg)
+        torch.cuda.synchronize()
+        t_eager = time.time() - t_eager
+    for name, a, b in zip(("MH samples", "swept bits", "cuts"), graphed, eager):
+        if not torch.equal(a, b):
+            raise AssertionError(f"mcpg_batch: the graphed round's {name} differ from the eager loop's")
+    print(f"  the graphed BA_1000 round (MH rounds and {cfg.num_ls} sweeps) equals the eager loops' bit for bit; the "
+          f"eager sample {t_eager:.3f} s", flush=True)
+    del sg, start, graphed, eager, loops
 
     # MCPG's colored sweep mode, one round on G22-like beside the sequential mode
     g = build_g22_like()
@@ -2013,6 +2072,8 @@ def run_tnco(dev, errs: dict):
         order, cost, hist = solve_tnco_mcpg(env, run_cfg, timings=times)
         torch.cuda.synchronize()
         counts[sampler] = {k.name: k.launches for k in build.KERNELS}
+        if sampler == "scan":  # the unsharded counterpart of the parallel phase's world of one
+            UNSHARDED["tnco"] = dict(order=order, cost=cost, best=hist, secs=times)
         print(f"  MCPG sampler={sampler}: seconds per round {times}; max_memory_allocated "
               f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB above the phase's start", flush=True)
         check_order(f"MCPG sampler={sampler}", env, order, cost, hist, worse_than=random_best)
@@ -2100,7 +2161,8 @@ def run_ppo(dev) -> dict:
         if not all(np.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"{label}: a loss is not finite")
         move = policy_movement(model0, state.model, obs0)
-        if profile:
+        if profile:  # the PPO run: the unsharded counterpart of the parallel phase's world of one
+            UNSHARDED["ppo"] = dict(history=hist, secs=times, state=_par_flat(state.optimizer.state_tensors()))
             profile_device(f"one {label} iteration", lambda: iteration(state))
         return move, hist
 
@@ -3249,6 +3311,508 @@ def run_agents(dev) -> dict:
     return no_launches("agents")
 
 
+
+# The data-parallel layer (phase `parallel`): the sharded forms at world
+# size 1 over NCCL in this process, then at world size 2, two spawned ranks
+# sharing the card over gloo
+PAR_WORLD2_CUT = dict(ppo=10, l2a=1)  # world size 2's depth: PPO iterations of 40, L2A iterations of 2 (room)
+UNSHARDED: dict = {}  # the tnco, ppo and l2a phases' runs that the world of one is held to (run_parallel)
+PAR_PPO_ITERS = PPO_ITERS  # the ppo phase's depth (the step size annealed over PPOConfig's 100 iterations)
+PAR_L2A_CUT = dict(pretrain_steps=20, num_iters=2, seq_len=4)  # the l2a phase's depth cut
+PAR_POMO_STEPS = 3  # the first captures the graph(s)
+PAR_REDUCE_REPS = 20
+PAR_K10_SIMS = 128  # a rank's L2A sims at world size 2 (of L2AConfig's 256)
+PAR_PATHS = ("tnco", "ppo", "l2a", "pomo")
+PAR_RECORD_NUMEL = 16  # a reduction of at most this many values is a metric's (the gradient buffers are larger)
+PAR_POMO_RTOL = 1e-5  # POMO's f32 tour lengths against the host's float64 re-score of the tours
+
+
+def _l2a_iteration_secs(times: dict, seq_len: int) -> list:
+    """Seconds of each L2A iteration (its rollout steps and its PPO update)
+    from `solve_maxcut_l2a`'s timings."""
+    return [sum(times["rollout"][i * seq_len : (i + 1) * seq_len]) + p for i, p in enumerate(times["ppo"])]
+
+
+def _par_flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+
+
+def _par_reduce_ms(numel: int, group, dev) -> float:
+    """Milliseconds of one all-reduce of an f32 buffer of `numel` over
+    `group` (host clock around a synchronised call, the mean of
+    PAR_REDUCE_REPS after one warm-up)."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device=dev)
+    dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PAR_REDUCE_REPS):
+        dist.all_reduce(buf, group=group)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / PAR_REDUCE_REPS
+
+
+class _ParRecorder:
+    """Inside `with`, on one rank: every pmean, pmax and pmin of at most
+    PAR_RECORD_NUMEL values (the metrics; the gradient buffers are larger)
+    as (op, this rank's value, the reduced value), and a digest of the
+    replicated state after every ClippedAdam step that Python makes outside
+    a capture (`adam=False`: only where the caller calls `digest`, as after a
+    replayed POMO step); the last optimizer is kept for its full state."""
+
+    def __init__(self, adam: bool = True):
+        self.adam, self.reduced, self.digests, self.opt = adam, [], [], None
+
+    def __enter__(self):
+        from rlsolver_tpu_torch import optim
+        from rlsolver_tpu_torch.parallel import mesh as mesh_lib
+
+        self.saved = [(mesh_lib, op, getattr(mesh_lib, op)) for op in ("pmean", "pmax", "pmin")]
+        for mod, op, fn in self.saved:
+            setattr(mod, op, self._reduce(op, fn))
+        if self.adam:
+            adam_step = optim.ClippedAdam.step
+
+            def step(opt, *args, **kwargs):
+                adam_step(opt, *args, **kwargs)
+                if not torch.cuda.is_current_stream_capturing():
+                    self.digest(opt)
+
+            self.saved.append((optim.ClippedAdam, "step", adam_step))
+            optim.ClippedAdam.step = step
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+    def _reduce(self, op: str, fn):
+        def reduce(x, mesh=None):
+            out = fn(x, mesh)
+            if x.numel() <= PAR_RECORD_NUMEL:
+                self.reduced.append((op, x.detach().clone(), out.detach().clone()))
+            return out
+        return reduce
+
+    def digest(self, opt) -> None:
+        """Two int64 sums of the state's f32 bits, plain and weighted by
+        position (integer sums: exact in any order): equal states give equal
+        digests, and states that differ in a bit all but surely do not."""
+        bits = torch.cat([t.detach().reshape(-1) for t in opt.state_tensors()]).view(torch.int32).long()
+        self.digests.append(torch.stack([bits.sum(), (bits * torch.arange(1, bits.numel() + 1,
+                                                                          device=bits.device)).sum()]))
+        self.opt = opt
+
+    def result(self) -> dict:
+        """CPU values: the reductions, the digests [steps, 2], the last
+        optimizer's state flat and its gradient buffer's length."""
+        return dict(reduced=[(op, a.cpu().numpy(), b.cpu().numpy()) for op, a, b in self.reduced],
+                    digests=torch.stack(self.digests).cpu(), state=_par_flat(self.opt.state_tensors()),
+                    grad_numel=sum(p.numel() for p in self.opt.params))
+
+
+def _par_sharded(dev, mesh) -> dict:
+    """This rank's part of the four sharded forms (solve_tnco_mcpg_sharded,
+    train_ppo_sharded, data-parallel L2A iterations, POMO steps) at the
+    configurations of `parallel`'s docstring, K10's plain version made to
+    raise; returns CPU values: what each returns, what `_ParRecorder` saw
+    of it, this rank's own best PPO env and last POMO tours for the host's
+    re-scores, seconds per step and the launches of the L2A run."""
+    import torch.distributed as dist
+
+    from rlsolver_tpu_torch.algos import am_pomo as ap, l2a, ppo, tnco_solver as ts
+    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.envs.tnco import TensorNetwork, TncoEnv, random_circuit_nodes
+    from rlsolver_tpu_torch.models.attention_tsp import AttentionTSP
+    from rlsolver_tpu_torch.ops.kernels import build, sweep_kernel as sk
+    from rlsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    n_ranks, out = mesh_lib.world_size(mesh), {"rank": mesh_lib.rank(mesh), "backend": dist.get_backend()}
+    g = build_g22_like()
+    # TNCO at the tnco phase's Sycamore N53 12-layer shape: the chains sharded
+    env = TncoEnv(TensorNetwork.from_nodes_list(*random_circuit_nodes(53, 12, seed=0)), dev)
+    cfg, secs = dataclasses.replace(ts.TncoMcpgConfig(), num_rounds=TNCO_ROUNDS), []
+    with _ParRecorder() as rec:
+        order, cost, hist = ts.solve_tnco_mcpg_sharded(env, mesh, cfg, timings=secs)
+    out["tnco"] = dict(order=order, cost=cost, best=hist, secs=secs, **rec.result())
+    del env, rec
+
+    # PPO at PPOConfig's widths on G22-like, the envs sharded
+    pcfg, secs = ppo.PPOConfig(), []
+    iters = PAR_PPO_ITERS if n_ranks == 1 else PAR_WORLD2_CUT["ppo"]
+    with _ParRecorder() as rec:
+        pstate, hist = ppo.train_ppo_sharded(g, mesh, pcfg, device=dev, timings=secs, iterations=iters)
+    top = int(torch.argmax(pstate.env_state.cut))
+    out["ppo"] = dict(history=hist, secs=secs, best_x=pstate.env_state.xs[top].cpu().numpy(),
+                      local_best=float(pstate.env_state.cut[top]), **rec.result())
+    del pstate, rec
+
+    # data-parallel L2A at L2AConfig's widths on G22-like (K10 on every rank)
+    lcfg = dataclasses.replace(l2a.L2AConfig(), seed=0, **PAR_L2A_CUT)
+    if n_ranks > 1:
+        lcfg = dataclasses.replace(lcfg, num_iters=PAR_WORLD2_CUT["l2a"])
+    plain_f32 = [(sk, "sweep_1flip_f32_plain")]
+    saved = plains_raise(plain_f32)
+    build.reset_counts()
+    try:
+        env_l, gen, net, opt, steps = l2a._l2a_setup(g, lcfg, dev, group=mesh)
+        xs = env_l.random_xs(gen, lcfg.num_sims)
+        xs = mesh_lib.shard_env_batch(mesh, mesh_lib.replicated(xs, mesh))
+        vs = env_l.obj(xs)
+        gen_r = mesh_lib.shard_generator(lcfg.seed, mesh, dev) or gen
+        # the incumbent as `Evaluator` keeps it (the l2a phase's solve records one an iteration)
+        best_x, best_v = xs[0].cpu().numpy(), float(vs[0])
+        rec_l = dict(secs=[], records=[best_v])
+        with _ParRecorder() as rec:
+            for _ in range(lcfg.num_iters):
+                t0 = time.time()
+                xs, vs, losses = l2a.data_parallel_iteration(steps, gen_r, xs, vs, lcfg.seq_len)
+                torch.cuda.synchronize()
+                rec_l["secs"].append(time.time() - t0)
+                top = int(torch.argmax(vs))
+                rec_l["records"].append(float(vs[top]))
+                if float(vs[top]) > best_v:
+                    best_x, best_v = xs[top].cpu().numpy(), float(vs[top])
+    finally:
+        restore(plain_f32, saved)
+    rec_l.update(best_x=best_x, best_v=best_v, launches={k.name: k.launches for k in build.KERNELS}, **rec.result())
+    out["l2a"] = rec_l
+    del env_l, net, opt, steps, rec
+
+    # POMO at POMOConfig's widths: each rank batch_size / ranks instances
+    acfg = ap.POMOConfig()
+    acfg = dataclasses.replace(acfg, batch_size=acfg.batch_size // n_ranks)
+    rec_p = {}
+    for graphed in (True, False) if n_ranks > 1 else (True,):
+        model = mesh_lib.replicated(AttentionTSP(acfg.embed_dim, acfg.num_heads, acfg.num_layers, seed=acfg.seed,
+                                                 device=dev), mesh)
+        opt, pstep = ap.make_pomo_step(model, acfg, cuda_graph=graphed, group=mesh)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(acfg.seed)
+        gen_r = mesh_lib.shard_generator(acfg.seed, mesh, dev) or gen
+        hist, secs = [], []
+        with _ParRecorder(adam=False) as rec:
+            for _ in range(PAR_POMO_STEPS):
+                t0 = time.time()
+                hist.append({k: float(v) for k, v in pstep(gen_r).items()})
+                secs.append(time.time() - t0)
+                rec.digest(opt)
+        nodes, tours = (x.cpu().numpy() for x in pstep.last_tours)
+        rec_p["graph" if graphed else "eager"] = dict(history=hist, secs=secs, nodes=nodes, tours=tours,
+                                                      **rec.result())
+    out["pomo"] = rec_p
+    out["reduce_ms"] = {p: _par_reduce_ms(out[p]["grad_numel"] if p != "pomo" else out[p]["graph"]["grad_numel"],
+                                          mesh_lib.group_of(mesh), dev) for p in PAR_PATHS}
+    return out
+
+
+def _par_rank() -> dict:
+    """The four forms on a rank of `parallel`'s world of 2, run by
+    `dryrun_multichip(2, extra=...)` after its five paths."""
+    from rlsolver_tpu_torch.parallel import mesh as mesh_lib
+
+    return _par_sharded(torch.device("cuda", torch.cuda.current_device()), mesh_lib.make_mesh(device_type="cuda"))
+
+
+def _par_unsharded(dev) -> dict:
+    """The four paths unsharded from the same seeds (the world of one's
+    counterparts): the tnco, ppo and l2a phases' runs where they ran in
+    this process (`UNSHARDED`), else run here; POMO's steps here."""
+    from rlsolver_tpu_torch.algos import am_pomo as ap, l2a, ppo, tnco_solver as ts
+    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.envs.flip_mdp import FlipMdpEnv
+    from rlsolver_tpu_torch.envs.tnco import TensorNetwork, TncoEnv, random_circuit_nodes
+    from rlsolver_tpu_torch.models.attention_tsp import AttentionTSP
+    from rlsolver_tpu_torch.ops.kernels import sweep_kernel as sk
+
+    g, out = build_g22_like(), dict(UNSHARDED)
+    if "tnco" not in out:
+        env = TncoEnv(TensorNetwork.from_nodes_list(*random_circuit_nodes(53, 12, seed=0)), dev)
+        secs = []
+        order, cost, hist = ts.solve_tnco_mcpg(env, dataclasses.replace(ts.TncoMcpgConfig(), num_rounds=TNCO_ROUNDS),
+                                               timings=secs)
+        out["tnco"] = dict(order=order, cost=cost, best=hist, secs=secs)
+    if "ppo" not in out:
+        pcfg = ppo.PPOConfig()
+        penv = FlipMdpEnv(g, horizon=pcfg.horizon, device=dev)
+        iteration, state = ppo.make_ppo_iteration(penv, pcfg), ppo.init_ppo_state(penv, pcfg, pcfg.num_envs)
+        hist, secs = [], []
+        for _ in range(PAR_PPO_ITERS):
+            t0 = time.time()
+            state, m = iteration(state)
+            hist.append({k: float(v) for k, v in m.items()})
+            secs.append(time.time() - t0)
+        out["ppo"] = dict(history=hist, secs=secs, state=_par_flat(state.optimizer.state_tensors()))
+    if "l2a" not in out:
+        lcfg = dataclasses.replace(l2a.L2AConfig(), seed=0, **PAR_L2A_CUT)
+        times = {}
+        plain_f32 = [(sk, "sweep_1flip_f32_plain")]
+        saved = plains_raise(plain_f32)
+        try:
+            best_x, best_v, ev = l2a.solve_maxcut_l2a(g, lcfg, device=dev, timings=times)
+        finally:
+            restore(plain_f32, saved)
+        out["l2a"] = dict(best_x=best_x, best_v=best_v, records=[r[1] for r in ev.records],
+                          secs=_l2a_iteration_secs(times, lcfg.seq_len))
+    acfg = ap.POMOConfig()
+    model = AttentionTSP(acfg.embed_dim, acfg.num_heads, acfg.num_layers, seed=acfg.seed, device=dev)
+    opt, pstep = ap.make_pomo_step(model, acfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(acfg.seed)
+    hist, secs = [], []
+    for _ in range(PAR_POMO_STEPS):
+        t0 = time.time()
+        hist.append({k: float(v) for k, v in pstep(gen).items()})
+        secs.append(time.time() - t0)
+    out["pomo"] = dict(graph=dict(history=hist, secs=secs, state=_par_flat(opt.state_tensors())))
+    return out
+
+
+def _par_same(label: str, a, b) -> None:
+    """Bit for bit: tensors, arrays, floats, lists and dicts of them."""
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return np.array_equal(x, y)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(equal(u, v) for u, v in zip(x, y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(equal(x[k], y[k]) for k in x)
+        return x == y
+
+    if not equal(a, b):
+        raise AssertionError(f"parallel: {label} differ")
+
+
+def _par_runs(ranks, path):
+    """[(label, [the run of `path` on rank 0, on rank 1, ...]), ...]: one
+    entry, or one for each of POMO's modes."""
+    if path != "pomo":
+        return [(path, [r[path] for r in ranks])]
+    return [(f"pomo ({m})", [r["pomo"][m] for r in ranks]) for m in ("graph", "eager") if m in ranks[0]["pomo"]]
+
+
+def _par_reductions(label: str, runs) -> list:
+    """Every reduction that `_ParRecorder` saw in `runs` (one a rank) must be
+    the host's of the ranks' own values, on every rank: the f32 SUM over
+    n then / n for pmean, the max for pmax, the min for pmin. Returns the
+    reductions as (op, [own value by rank], reduced value)."""
+    logs = [run["reduced"] for run in runs]
+    n = len(runs)
+    if len({len(log) for log in logs}) != 1:
+        raise AssertionError(f"parallel: {label}: the ranks made {[len(log) for log in logs]} reductions")
+    out = []
+    for k, recs in enumerate(zip(*logs)):
+        op = recs[0][0]
+        if any(rec[0] != op for rec in recs):
+            raise AssertionError(f"parallel: {label}: reduction {k} is {[rec[0] for rec in recs]} by rank")
+        own = np.stack([rec[1] for rec in recs]).astype(np.float32)
+        want = {"pmean": lambda: own.sum(axis=0, dtype=np.float32) / np.float32(n), "pmax": lambda: own.max(axis=0),
+                "pmin": lambda: own.min(axis=0)}[op]()
+        for r, rec in enumerate(recs):
+            if not np.array_equal(rec[2], want):
+                raise AssertionError(f"parallel: {label}: reduction {k} ({op}) gave {rec[2].tolist()} on rank {r}; "
+                                     f"the host's of the ranks' own {own.tolist()} is {want.tolist()}")
+        out.append((op, own, want))
+    return out
+
+
+def _par_metrics(label: str, reduced, ops, values=None) -> None:
+    """The reductions behind a solver's returned metrics: their ops are
+    `ops`, and their values `values` where given (the metrics as the solver
+    returned them)."""
+    if [op for op, _, _ in reduced] != list(ops):
+        raise AssertionError(f"parallel: {label}: the reductions are {[op for op, _, _ in reduced]}, not {list(ops)}")
+    if values is not None and not all(np.array_equal(np.float32(v), want) for (_, _, want), v in zip(reduced, values)):
+        raise AssertionError(f"parallel: {label}: the returned metrics {values} are not the reductions "
+                             f"{[want.tolist() for _, _, want in reduced]}")
+
+
+def _par_check(label: str, ranks, g, tnco_env) -> None:
+    """The checks of one world's ranks: the replicated state (its digest
+    after every step and its full value at the end) bit for bit equal
+    across the ranks; every reduced metric the host's reduction of the
+    ranks' own values, and the one the solver returned; every best cost,
+    cut or tour length its host re-score; K10 launched on every rank."""
+    from rlsolver_tpu_torch.problems.objectives import obj_maxcut
+
+    n, first, held = len(ranks), ranks[0], {}
+    for path in PAR_PATHS:
+        for name, runs in _par_runs(ranks, path):
+            for r, run in enumerate(runs[1:], 1):
+                _par_same(f"{label}: {name}'s replicated state after every step on rank {r} and rank 0",
+                          run["digests"], runs[0]["digests"])
+                _par_same(f"{label}: {name}'s replicated state on rank {r} and rank 0", run["state"], runs[0]["state"])
+            reduced = held[name] = _par_reductions(f"{label} {name}", runs)
+            if path == "tnco":  # a round: the mean cost pmean'd, the incumbent pmin'd
+                rounds = len(runs[0]["best"])
+                _par_metrics(f"{label} TNCO's rounds", reduced, ("pmean", "pmin") * rounds)
+                _par_metrics(f"{label} TNCO's best by round", reduced[1::2], ("pmin",) * rounds, runs[0]["best"])
+            elif path == "ppo":  # an iteration: the advantages' mean and variance a minibatch, then the metrics
+                hist = runs[0]["history"]
+                per = len(reduced) // len(hist)
+                if per * len(hist) != len(reduced):
+                    raise AssertionError(f"parallel: {label}: {len(reduced)} PPO reductions in {len(hist)} iterations")
+                for i, h in enumerate(hist):
+                    _par_metrics(f"{label} PPO's iteration {i}", reduced[i * per : (i + 1) * per],
+                                 ("pmean",) * (per - 4) + ("pmean", "pmean", "pmax", "pmean"))
+                    _par_metrics(f"{label} PPO's metrics of iteration {i}", reduced[(i + 1) * per - 4 : (i + 1) * per],
+                                 ("pmean", "pmean", "pmax", "pmean"),
+                                 [h[k] for k in ("loss", "mean_cut", "best_cut", "mean_reward")])
+            elif path == "pomo":  # a step: the three metrics pmean'd (the gradients too, not recorded)
+                hist = runs[0]["history"]
+                _par_metrics(f"{label} {name}'s metrics", reduced, ("pmean",) * len(hist),
+                             [[h[k] for k in ("loss", "mean_length", "best_length")] for h in hist])
+    for r in ranks[1:]:
+        keys = ("order", "cost", "best")
+        _par_same(f"{label}: rank {r['rank']}'s TNCO order, cost and history and rank 0's",
+                  [r["tnco"][k] for k in keys], [first["tnco"][k] for k in keys])
+        _par_same(f"{label}: rank {r['rank']}'s PPO history and rank 0's", r["ppo"]["history"], first["ppo"]["history"])
+    if first["tnco"]["cost"] != first["tnco"]["best"][-1]:
+        raise AssertionError(f"{label}: TNCO's gathered best {first['tnco']['cost']} is not its last round's pmin")
+    check_order(f"{label} TNCO (sharded, {n} rank{'s' * (n > 1)})", tnco_env, first["tnco"]["order"],
+                first["tnco"]["cost"], first["tnco"]["best"])
+    for r in ranks:
+        host = obj_maxcut(r["ppo"]["best_x"].astype("int64"), g)
+        if host != r["ppo"]["local_best"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s best PPO cut {r['ppo']['local_best']} != host {host}")
+        host = obj_maxcut(r["l2a"]["best_x"].astype("int64"), g)
+        if host != r["l2a"]["best_v"]:
+            raise AssertionError(f"{label}: rank {r['rank']}'s L2A best cut {r['l2a']['best_v']} != host {host}")
+        if r["l2a"]["launches"]["sweep_1flip_f32"] <= 0:
+            raise AssertionError(f"{label}: rank {r['rank']}'s L2A did not launch K10")
+        wrong = [k for k in SWEEPS if r["l2a"]["launches"][k]]
+        if wrong:
+            raise AssertionError(f"{label}: rank {r['rank']}'s L2A launched {wrong}")
+    # each rank's own best cut of the last iteration went into the pmax
+    last_pmax = [own for op, own, _ in held["ppo"] if op == "pmax"][-1]
+    if last_pmax.tolist() != [np.float32(r["ppo"]["local_best"]) for r in ranks]:
+        raise AssertionError(f"{label}: the ranks' own best PPO cuts {last_pmax.tolist()} are not their best envs'")
+    worst = 0.0
+    for name, runs in _par_runs(ranks, "pomo"):
+        for r, run in enumerate(runs):
+            nodes, tours = run["nodes"].astype(np.float64), run["tours"]
+            if not (np.sort(tours, axis=-1) == np.arange(tours.shape[-1])).all():
+                raise AssertionError(f"{label}: a {name} tour on rank {r} is not a permutation")
+            pts = np.take_along_axis(nodes[:, None, :, :], tours[..., None], axis=2)
+            lengths = np.sqrt(((pts - np.roll(pts, -1, axis=2)) ** 2).sum(-1)).sum(-1)
+            own = run["reduced"][-1][1]  # this rank's (loss, mean length, mean best length) of the last step
+            host = np.asarray([lengths.mean(), lengths.min(axis=1).mean()])
+            err = float(np.abs(own[1:] - host).max() / host.max())
+            worst = max(worst, err)
+            if not err <= PAR_POMO_RTOL:
+                raise AssertionError(f"{label}: {name} rank {r}'s lengths {own[1:].tolist()} against the host's "
+                                     f"float64 re-score {host.tolist()}: {err:.2e} of them (limit {PAR_POMO_RTOL})")
+    print(f"  {label}: replicated state equal on the {n} rank{'s' * (n > 1)} after every step; "
+          f"{sum(map(len, held.values()))} reductions equal to the host's of the ranks' own values; TNCO's cost, "
+          f"the PPO and L2A cuts their host re-scores, POMO's lengths within {worst:.2e} of the float64 re-score "
+          f"of its tours (limit {PAR_POMO_RTOL})", flush=True)
+
+
+def _par_print(label: str, ranks, unsharded=None) -> None:
+    r0 = ranks[0]
+    def med(x):
+        return float(np.median(x[1:] if len(x) > 1 else x))
+    for p in ("tnco", "ppo", "l2a"):
+        line = f"  {label} {p}: s/step (median after the first) {[round(med(r[p]['secs']), 5) for r in ranks]} by rank"
+        if unsharded is not None:
+            line += f", unsharded {med(unsharded[p]['secs']):.5f}"
+        print(line + f"; secs {[round(s, 4) for s in r0[p]['secs']]}", flush=True)
+    for mode in ("graph", "eager"):
+        if mode in r0["pomo"]:
+            line = (f"  {label} pomo ({mode}): s/step {[round(s, 5) for s in r0['pomo'][mode]['secs']]} (rank 0), "
+                    f"mean length {[round(h['mean_length'], 4) for h in r0['pomo'][mode]['history']]}")
+            if unsharded is not None and mode == "graph":
+                line += f"; unsharded {[round(s, 5) for s in unsharded['pomo']['graph']['secs']]}"
+            print(line, flush=True)
+    numel = {p: (r0[p] if p != "pomo" else r0[p]["graph"])["grad_numel"] for p in PAR_PATHS}
+    print(f"  {label} one all-reduce of each path's gradient buffer over {r0['backend']}: "
+          + ", ".join(f"{p} {numel[p]} f32 {r0['reduce_ms'][p]:.4f} ms" for p in PAR_PATHS), flush=True)
+
+
+def run_parallel(dev, errs: dict) -> dict:
+    """The `parallel` phase: (a) world size 1 over NCCL in this process,
+    every sharded form bit for bit equal to its unsharded counterpart from
+    the same seeds; (b) `dryrun_multichip(2)` and the four forms at world
+    size 2, two ranks sharing the card over gloo, each holding half the
+    chains, envs and sims; (c) the checks of `_par_check`, K10 on a rank's
+    shard shape bit for bit against its plain version; (d) the backends,
+    s/step beside the unsharded step, one all-reduce of each gradient buffer.
+    Returns the launches of both L2A worlds, summed over the ranks."""
+    import torch.distributed as dist
+
+    from rlsolver_tpu_torch import entry
+    from rlsolver_tpu_torch.algos.l2a import L2AConfig
+    from rlsolver_tpu_torch.core.generate import build_g22_like
+    from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
+    from rlsolver_tpu_torch.envs.tnco import TensorNetwork, TncoEnv, random_circuit_nodes
+    from rlsolver_tpu_torch.ops import cut
+    from rlsolver_tpu_torch.ops.kernels import build, sweep_kernel as sk
+    from rlsolver_tpu_torch.parallel import launch, mesh as mesh_lib
+
+    g = build_g22_like()
+    tnco_env = TncoEnv(TensorNetwork.from_nodes_list(*random_circuit_nodes(53, 12, seed=0)), dev)
+    print(f"  {smi_line()}", flush=True)
+    # (a) world size 1, NCCL, in this process
+    store = tempfile.mkdtemp(prefix="parallel_")
+    backend = launch.choose_backend(1, "cuda")
+    print(f"  world size 1: backend {backend} (a card for the rank)", flush=True)
+    dist.init_process_group(backend, init_method=f"file://{store}/store", world_size=1, rank=0)
+    try:
+        t0 = time.time()
+        one = _par_sharded(dev, mesh_lib.make_mesh(device_type="cuda"))
+        t_one = time.time() - t0
+    finally:
+        dist.destroy_process_group()
+    t0 = time.time()
+    base = _par_unsharded(dev)
+    t_base = time.time() - t0
+    _par_check("world 1", [one], g, tnco_env)
+    _par_same("world 1: TNCO's order, cost and history and the unsharded run's",
+              (one["tnco"]["order"], one["tnco"]["cost"], one["tnco"]["best"]),
+              (base["tnco"]["order"], base["tnco"]["cost"], base["tnco"]["best"]))
+    _par_same("world 1: PPO's history and state and the unsharded run's", (one["ppo"]["history"], one["ppo"]["state"]),
+              (base["ppo"]["history"], base["ppo"]["state"]))
+    _par_same("world 1: L2A's incumbent bits, its cut and the best cut after each iteration and the unsharded "
+              "solve's", [one["l2a"][k] for k in ("best_x", "best_v", "records")],
+              [base["l2a"][k] for k in ("best_x", "best_v", "records")])
+    _par_same("world 1: POMO's metrics and state and the unsharded run's",
+              [one["pomo"]["graph"][k] for k in ("history", "state")],
+              [base["pomo"]["graph"][k] for k in ("history", "state")])
+    print(f"  world 1 over {one['backend']}: every sharded form equals its unsharded run bit for bit ({t_one:.1f} s "
+          f"sharded, {t_base:.1f} s unsharded)", flush=True)
+    _par_print("world 1", [one], base)
+
+    # (b) dryrun_multichip(2) on one card, its ranks then running the four forms at world size 2
+    t0 = time.time()
+    dry = entry.dryrun_multichip(2, "cuda", timeout_s=300, join_timeout_s=900, extra=_par_rank)
+    two = [r["extra"] for r in dry]
+    print(f"  world 2: dryrun_multichip(2) ({time.time() - t0:.1f} s), its ranks on {[r['backend'] for r in two]}: "
+          f"`__graft_entry__.py`'s asserts hold and the replicated parameters are equal "
+          f"({[round(r['seconds'], 2) for r in dry]} s by rank); then the four forms in its ranks, depth cut to "
+          f"{PAR_WORLD2_CUT['ppo']} PPO and {PAR_WORLD2_CUT['l2a']} L2A iterations", flush=True)
+    _par_check("world 2", two, g, tnco_env)
+    _par_print("world 2", two, base)
+
+    # (c) K10 at a rank's shard shape (128 sims x 8 repeats of G22-like)
+    env = MaxcutEnv(g, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(128)
+    b = PAR_K10_SIMS * L2AConfig().num_repeats
+    xs = torch.rand(b, g.num_nodes, generator=gen, device=dev) < 0.5
+    args = (env.cg.adj, cut.signs_from_bits(xs), env.gains(xs), env.obj(xs))
+    for part, a, p in zip(("s", "gains", "vs"), sk.sweep_1flip_f32(*args, env.f32_lists),
+                          sk.sweep_1flip_f32_plain(*args)):
+        require_equal(f"K10 sweep_1flip_f32 at a rank's shard shape ({b} chains of G22like): {part}", a, p, errs,
+                      "sweep_1flip_f32")
+    counts = {k.name: one["l2a"]["launches"][k.name] + sum(r["l2a"]["launches"][k.name] for r in two)
+              for k in build.KERNELS}
+    print(f"  launches in the L2A runs, world 1 and both ranks of world 2: {counts}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3773,6 +4337,8 @@ def main() -> int:
     finally:
         restore(plain_f32, saved)
     l2a_counts = {k.name: k.launches for k in build.KERNELS}
+    UNSHARDED["l2a"] = dict(best_x=best_x, best_v=best_v, records=[r[1] for r in ev.records],
+                            secs=_l2a_iteration_secs(l2a_times, l2a_cfg.seq_len))
     host = obj_maxcut(best_x.astype("int64"), g)
     print(f"  G22like: {l2a_cfg.num_sims} x {l2a_cfg.num_repeats} = {B_L2A} candidates per step; pretrain "
           f"{l2a_times['pretrain'][0]:.3f} s; seconds per rollout step {l2a_times['rollout']}; seconds per PPO "
@@ -3842,6 +4408,9 @@ def main() -> int:
     t0 = time.time()
     agents_counts = run_agents(dev)
     phase("agents", t0)
+    t0 = time.time()
+    parallel_counts = run_parallel(dev, errs)
+    phase("parallel", t0)
 
     # 9. CLI ------------------------------------------------------------------
     t0 = time.time()
@@ -4147,6 +4716,7 @@ def main() -> int:
         k["tnco_launches"] = tnco_counts[k["name"]]
         k["tsp_launches"], k["l2o_launches"] = tsp_counts[k["name"]], l2o_counts[k["name"]]
         k["rlor_launches"], k["agents_launches"] = rlor_counts[k["name"]], agents_counts[k["name"]]
+        k["parallel_launches"] = parallel_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)

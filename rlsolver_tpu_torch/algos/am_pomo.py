@@ -27,6 +27,7 @@ from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.models.attention_tsp import AttentionTSP
 from rlsolver_tpu_torch.ops.sampling import gumbel_noise
 from rlsolver_tpu_torch.optim import ClippedAdam
+from rlsolver_tpu_torch.parallel import mesh as mesh_lib
 
 
 def tour_lengths(nodes: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
@@ -91,28 +92,48 @@ class POMODraws(NamedTuple):
     gumbel: torch.Tensor
 
 
-def make_pomo_step(model: AttentionTSP, cfg: POMOConfig, cuda_graph: bool = True):
+def make_pomo_step(model: AttentionTSP, cfg: POMOConfig, cuda_graph: bool = True, group=None):
     """(optimizer, step): step(gen=None, draws=None) samples a fresh uniform
     batch and the rollout's Gumbel noise (or takes `draws`), runs a POMO
     rollout and applies the shared-baseline REINFORCE update; it returns the
     metrics (loss, mean_length, best_length) as device scalars, valid until
-    the next step. On the card (unless `cuda_graph=False`) the step after
-    the draws is one CUDA graph replay (`capture.CapturedCall`): a step is
-    about 3,000 small launches, host-bound when eager."""
+    the next step, and keeps the step's instances and tours in
+    `step.last_tours` ((nodes [B, N, 2], actions [B, P, N]), as long).
+
+    On the card (unless `cuda_graph=False`) the step after the draws is two
+    CUDA graph replays (`capture.CapturedCall`; a step is about 3,000 small
+    launches, host-bound when eager): the rollout and backward pass, which
+    leaves the gradients in one flat buffer, and the clip and Adam step.
+    The gradients' reduction runs eagerly between the two, since a gloo
+    collective cannot be captured; with no group, or a group of one, it is
+    the identity.
+
+    `group` (a `parallel` mesh or process group) makes it the data-parallel
+    step: each rank draws `cfg.batch_size` instances and its rollout from
+    its own generator (JAX's `fold_in` of the shard index on the data and
+    rollout keys), and the gradients and the three metrics are `pmean`'d."""
     opt = ClippedAdam(model.parameters(), cfg.lr, max_norm=cfg.grad_clip)
     dev = next(model.parameters()).device
     pomo = cfg.pomo_size or cfg.num_cities
 
-    def update(nodes, gumbel, corr):
-        opt.zero_grad()
-        _, logp, lengths = rollout_pomo(model, nodes, cfg.pomo_size, gumbel=gumbel)
+    def grads(nodes, gumbel):
+        actions, logp, lengths = rollout_pomo(model, nodes, cfg.pomo_size, gumbel=gumbel)
         advantage = lengths - lengths.mean(dim=1, keepdim=True)  # POMO's shared baseline
         loss = torch.mean(advantage * torch.clamp(logp, min=-5.0 * cfg.num_cities))  # `trainer.py:194`
-        loss.backward()
-        opt.step(corr=corr)
-        return loss.detach(), lengths.mean(), lengths.min(dim=1).values.mean()
+        gs = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        flat = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1) for g, p in zip(gs, opt.params)])
+        return flat, torch.stack([loss.detach(), lengths.mean(), lengths.min(dim=1).values.mean()]), actions
 
-    update_call = CapturedCall(update, cuda_graph, restore=opt.state_tensors())
+    def apply(flat, corr):
+        at = 0
+        for p in opt.params:
+            p.grad = flat[at : at + p.numel()].view_as(p)
+            at += p.numel()
+        opt.step(corr=corr)
+        return ()
+
+    grads_call = CapturedCall(grads, cuda_graph)
+    apply_call = CapturedCall(apply, cuda_graph, restore=opt.state_tensors())
 
     def step(gen: Optional[torch.Generator] = None, draws: Optional[POMODraws] = None) -> Dict[str, torch.Tensor]:
         if draws is None:
@@ -120,9 +141,12 @@ def make_pomo_step(model: AttentionTSP, cfg: POMOConfig, cuda_graph: bool = True
             gumbel = gumbel_noise((cfg.num_cities - 1, cfg.batch_size, pomo, cfg.num_cities), gen, dev)
         else:
             nodes, gumbel = draws.nodes.to(dev), draws.gumbel.to(dev)
-        out = update_call(nodes, gumbel, opt.corrections())
-        return dict(zip(("loss", "mean_length", "best_length"), out))
+        flat, metrics, actions = grads_call(nodes, gumbel)
+        apply_call(mesh_lib.pmean(flat, group), opt.corrections())
+        step.last_tours = (nodes, actions)
+        return dict(zip(("loss", "mean_length", "best_length"), mesh_lib.pmean(metrics, group)))
 
+    step.last_tours = None
     return opt, step
 
 

@@ -25,8 +25,15 @@ plain tensor code, as XLA code in the JAX package.
 the PPO update) as a step of `train.runner.TrainLoop`, with checkpoint and
 resume, `metrics.jsonl` and the stop sentinel.
 
-The distribution-wise variant is `algos/l2a_distribution.py`. Not ported
-here: the data-parallel `axis_name` of `_build_l2a_steps`.
+The data-parallel form (`_build_l2a_steps(..., group=)`,
+`data_parallel_iteration`; S2V_PPO's DDP pattern) shards the sims over the
+ranks of a `parallel` mesh: each rank runs its own rollout steps and
+minibatches from a generator of its own (`__graft_entry__.py` folds the
+shard index into the whole step's key), the advantage normalisation stays
+per rank, and each minibatch's gradients are `pmean`'d (one flat all-reduce)
+before the clip and Adam. The local search on each rank ends in K10.
+
+The distribution-wise variant is `algos/l2a_distribution.py`.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from rlsolver_tpu_torch.ops.kernels.engine import FusedSweepEngine
 from rlsolver_tpu_torch.ops.reductions import pick_xs_by_vs, update_xs_by_vs
 from rlsolver_tpu_torch.ops.sampling import sub_set_sampling
 from rlsolver_tpu_torch.optim import ClippedAdam
+from rlsolver_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -115,6 +123,20 @@ class RolloutBatch(NamedTuple):
     logprobs: torch.Tensor  # f32 [T, B]
 
 
+class RolloutDraws(NamedTuple):
+    """A rollout step's draws in place of the generator's: the policy noise
+    f32 [B, N] (standard normals), `sub_set_sampling`'s uniforms f32
+    [R * B, top_k], the exploration group's positions int [B, k] and bits
+    bool [B, k], and each searcher's local-search normals f32
+    [num_searchers, ls_iters + 1, R * B, N]."""
+
+    noise: torch.Tensor
+    u: torch.Tensor
+    rand_ids: torch.Tensor
+    explore: torch.Tensor
+    ls: torch.Tensor
+
+
 class L2ASteps(NamedTuple):
     rollout_step: Callable
     ppo_update: Callable
@@ -135,37 +157,47 @@ def gae_advantages(rewards: torch.Tensor, values: torch.Tensor, lam: float) -> t
 
 
 def _build_l2a_steps(env: MaxcutEnv, net: PolicyTrsWithValue, seq_graph: torch.Tensor, cfg: L2AConfig,
-                     optimizer: ClippedAdam, engine: Optional[FusedSweepEngine] = None) -> L2ASteps:
+                     optimizer: ClippedAdam, engine: Optional[FusedSweepEngine] = None, group=None) -> L2ASteps:
     """The two steps of the dREINFORCE loop: one policy-guided improvement
-    step and the PPO update."""
+    step and the PPO update. `group` (a `parallel` mesh or process group)
+    `pmean`s each minibatch's gradients over its ranks, each of which holds
+    its own sims."""
     dev = env.device
 
     @torch.no_grad()
-    def rollout_step(gen: torch.Generator, best_xs: torch.Tensor, best_vs: torch.Tensor):
-        """-> (new_xs, new_vs, reward [B], logprob [B])."""
+    def rollout_step(gen: Optional[torch.Generator], best_xs: torch.Tensor, best_vs: torch.Tensor,
+                     draws: Optional[RolloutDraws] = None):
+        """-> (new_xs, new_vs, reward [B], logprob [B]). The draws come from
+        `gen` unless `draws` gives them (not with `fused_ls`)."""
         logits, _ = net(solution_to_prob_channels(best_xs), seq_graph)
         probs = torch.softmax(logits, dim=-1)[..., 0]
-        probs = torch.clamp(probs + torch.randn(probs.shape, generator=gen, device=dev) * cfg.prob_noise, 0.0, 1.0)
-        full_xs = sub_set_sampling(gen, probs, best_xs, cfg.num_repeats, cfg.top_k)
+        z = torch.randn(probs.shape, generator=gen, device=dev) if draws is None else draws.noise.to(dev)
+        probs = torch.clamp(probs + z * cfg.prob_noise, 0.0, 1.0)
+        full_xs = sub_set_sampling(gen, probs, best_xs, cfg.num_repeats, cfg.top_k,
+                                   u=None if draws is None else draws.u.to(dev))
         if cfg.num_repeats > 1:
             # exploration group: the last repeat redraws k random bits at
             # p = 0.5, so a confident but wrong policy cannot stall on its
             # own least certain bits
             s, n_bits = best_xs.shape
             k_e = min(cfg.top_k, n_bits)
-            rand_ids = torch.randint(0, n_bits, (s, k_e), generator=gen, device=dev)
+            if draws is None:
+                rand_ids = torch.randint(0, n_bits, (s, k_e), generator=gen, device=dev)
+                bits = torch.rand(s, k_e, generator=gen, device=dev) < 0.5
+            else:
+                rand_ids, bits = draws.rand_ids.to(dev).long(), draws.explore.to(dev)
             explore = best_xs.clone()
-            draws = torch.rand(s, k_e, generator=gen, device=dev) < 0.5
-            explore[torch.arange(s, device=dev)[:, None], rand_ids] = draws
+            explore[torch.arange(s, device=dev)[:, None], rand_ids] = bits
             full_xs[(cfg.num_repeats - 1) * s :] = explore
         if engine is not None:
             full_xs = engine.sweep(_kernel_seed(gen), full_xs, cfg.fused_sweeps)
             full_vs = env.obj(full_xs)
         else:
             full_vs = env.obj(full_xs)
-            for _ in range(cfg.num_searchers):
+            for i in range(cfg.num_searchers):
                 full_xs, full_vs = env.local_search(gen, full_xs, full_vs, num_iters=cfg.ls_iters,
-                                                    num_spin=cfg.ls_num_spin)
+                                                    num_spin=cfg.ls_num_spin,
+                                                    noise=None if draws is None else draws.ls[i])
         good_xs, good_vs = pick_xs_by_vs(full_xs, full_vs, cfg.num_repeats)
         new_xs, new_vs = update_xs_by_vs(best_xs, best_vs, good_xs, good_vs)
         p_taken = torch.clamp(torch.where(new_xs, probs, 1 - probs), 0.005, 0.995)
@@ -203,6 +235,7 @@ def _build_l2a_steps(env: MaxcutEnv, net: PolicyTrsWithValue, seq_graph: torch.T
             loss = obj_critic - obj_policy  # maximise the surrogate
             optimizer.zero_grad()
             loss.backward()
+            mesh_lib.pmean_grads(optimizer.params, group)
             optimizer.step()
             losses.append(loss.detach())
         return torch.stack(losses)
@@ -237,12 +270,14 @@ class L2ASetup(NamedTuple):
     steps: L2ASteps
 
 
-def _l2a_setup(graph: Graph, cfg: L2AConfig, dev: torch.device, timings: Optional[_Timings] = None) -> L2ASetup:
+def _l2a_setup(graph: Graph, cfg: L2AConfig, dev: torch.device, timings: Optional[_Timings] = None,
+               group=None) -> L2ASetup:
     """What the solve and the runner share: the env (and with `fused_ls`
     the sweep engine), the generator seeded `cfg.seed`, the pretrained
     encoder's features, the policy net, its optimizer and the two steps.
     The generator is drawn from by the pretraining, then for the net's
-    seed."""
+    seed. With `group` every rank takes rank 0's features and net (a
+    broadcast) and the steps `pmean` the gradients."""
     timings = timings or _Timings(dev, None)
     env = MaxcutEnv(graph, dev, packed_sweep=cfg.packed_sweep)
     engine = FusedSweepEngine.build(graph, dev) if cfg.fused_ls else None
@@ -252,8 +287,9 @@ def _l2a_setup(graph: Graph, cfg: L2AConfig, dev: torch.device, timings: Optiona
     _, seq_graph = pretrain_graph_encoder(graph, cfg, gen, dev)
     timings.lap("pretrain", t0)
     net = PolicyTrsWithValue(cfg.embed_dim, cfg.num_heads, seed=_kernel_seed(gen), device=dev)
+    mesh_lib.replicated([seq_graph, net], group)
     optimizer = ClippedAdam(net.parameters(), cfg.lr)
-    return L2ASetup(env, gen, net, optimizer, _build_l2a_steps(env, net, seq_graph, cfg, optimizer, engine))
+    return L2ASetup(env, gen, net, optimizer, _build_l2a_steps(env, net, seq_graph, cfg, optimizer, engine, group))
 
 
 def _rollout(steps: L2ASteps, gen: torch.Generator, best_xs: torch.Tensor, best_vs: torch.Tensor, seq_len: int,
@@ -269,6 +305,25 @@ def _rollout(steps: L2ASteps, gen: torch.Generator, best_xs: torch.Tensor, best_
         rewards.append(reward)
         logprobs.append(logprob)
     return best_xs, best_vs, RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs))
+
+
+def data_parallel_iteration(steps: L2ASteps, gen: Optional[torch.Generator], best_xs: torch.Tensor,
+                            best_vs: torch.Tensor, seq_len: int, draws: Optional[Sequence[RolloutDraws]] = None,
+                            ids: Optional[Sequence[torch.Tensor]] = None):
+    """One iteration of data-parallel dREINFORCE on this rank's sims
+    (`__graft_entry__.py`'s sharded `l2a_step`): `seq_len` rollout steps,
+    then the PPO update of `steps` (built with the group), from this rank's
+    generator unless `draws` (one a step) and `ids` (one a minibatch) give
+    the draws. Returns (new xs, new vs, the update's losses)."""
+    states, rewards, logprobs = [best_xs], [], []
+    for t in range(seq_len):
+        best_xs, best_vs, reward, logprob = steps.rollout_step(gen, best_xs, best_vs,
+                                                               draws=None if draws is None else draws[t])
+        states.append(best_xs)
+        rewards.append(reward)
+        logprobs.append(logprob)
+    batch = RolloutBatch(torch.stack(states), torch.stack(rewards), torch.stack(logprobs))
+    return best_xs, best_vs, steps.ppo_update(gen, batch, ids=ids)
 
 
 def solve_maxcut_l2a(

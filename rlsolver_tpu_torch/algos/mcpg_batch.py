@@ -16,6 +16,12 @@ Each graph follows `algos/mcpg.py` with the reference's sampler:
     value (`MCPG.py:292-302`): clip by global norm 1.0, then Adam, for
     `sample_epoch_num` steps a round; the policy is reset every epoch.
 Chains are laid out [G, R * C, N], repeat r of chain c at row r * C + c.
+
+On the card the MH rounds and each sweep's N steps (a few launches a round
+or a step, 40,000-odd a BA_1000 round) replay as CUDA graphs, one per
+shape, captured at their first call of a solve (`capture.Graphs`). `sample_round`
+and `_sweep_stacked` run the eager loops unless given `graphs=`; the graphs
+follow them bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from rlsolver_tpu_torch.algos.mcpg import MCPGConfig
+from rlsolver_tpu_torch.capture import EAGER, Graphs
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
 from rlsolver_tpu_torch.optim import ClippedAdam
@@ -102,6 +109,23 @@ def cut_values_stacked(xs: torch.Tensor, sg: StackedGraphs) -> torch.Tensor:
     return (sg.total_w[:, None] - quad / 2.0) / 2.0
 
 
+def _mh_rounds(bits: torch.Tensor, probs: torch.Tensor, nodes: torch.Tensor, u: torch.Tensor,
+               budget: torch.Tensor) -> torch.Tensor:
+    """The MH rounds on bits bool [G, B, N] (written in place) toward probs
+    [G, N], a graph's accepts stopped once it has accepted `budget` (int64
+    0-d) flips, the budget checked before each round."""
+    cnt = torch.zeros(bits.shape[0], dtype=torch.int64, device=bits.device)
+    for t in range(nodes.shape[0]):
+        node = nodes[t].long()
+        p = torch.gather(probs, 1, node)
+        cur = torch.gather(bits, 2, node[:, :, None])[:, :, 0]
+        q = torch.where(cur, p, 1.0 - p)
+        accept = (u[t] < (1.0 - q) / q) & (cnt < budget)[:, None]
+        bits.scatter_(2, node[:, :, None], (cur ^ accept)[:, :, None])
+        cnt += accept.sum(dim=1)
+    return bits
+
+
 def _mh_stacked(
     gen: Optional[torch.Generator],
     probs: torch.Tensor,
@@ -110,6 +134,7 @@ def _mh_stacked(
     round_cap_factor: int = 5,
     nodes: Optional[torch.Tensor] = None,
     u: Optional[torch.Tensor] = None,
+    graphs: Graphs = EAGER,
 ) -> torch.Tensor:
     """round_cap_factor * change_times MH rounds on bits bool [G, B, N]
     toward probs [G, N]; a graph's accepts stop once it has accepted
@@ -122,22 +147,25 @@ def _mh_stacked(
     if nodes is None:
         nodes = torch.randint(0, num_nodes, (rounds, num_graphs, num_chains), generator=gen, device=dev)
         u = torch.rand(rounds, num_graphs, num_chains, generator=gen, device=dev)
-    budget = num_chains * change_times
-    bits = bits.clone()
-    cnt = torch.zeros(num_graphs, dtype=torch.int64, device=dev)
-    for t in range(rounds):
-        node = nodes[t].long()
-        p = torch.gather(probs, 1, node)
-        cur = torch.gather(bits, 2, node[:, :, None])[:, :, 0]
-        q = torch.where(cur, p, 1.0 - p)
-        accept = (u[t] < (1.0 - q) / q) & (cnt < budget)[:, None]
-        bits.scatter_(2, node[:, :, None], (cur ^ accept)[:, :, None])
-        cnt += accept.sum(dim=1)
-    return bits
+    budget = torch.tensor(num_chains * change_times, dtype=torch.int64, device=dev)
+    return graphs("mh", _mh_rounds, bits.clone(), probs, nodes.to(dev), u.to(dev), budget).clone()
+
+
+def _sweep_steps(xn: torch.Tensor, u: torch.Tensor, sg: StackedGraphs) -> torch.Tensor:
+    """One sweep's N steps on the node-major state xn [G * (N + 1), B],
+    written in place, with its uniforms u [N, G, B]."""
+    num_graphs, b = sg.num_graphs, xn.shape[1]
+    for k in range(sg.num_nodes):
+        rows, w = sg.step_tables(k)
+        vals = torch.index_select(xn, 0, rows).view(num_graphs, -1, b)  # [G, D_k, B]
+        nbr_sum = torch.bmm(w, vals)[:, 0]
+        new_bit = torch.add(nbr_sum, u[k], alpha=NOISE_SCALE) < sg.thr[k]  # nbr_sum + u * NOISE_SCALE, one rounding
+        xn.index_copy_(0, sg.order_rows[k], new_bit.to(torch.float32))
+    return xn
 
 
 def _sweep_stacked(gen: Optional[torch.Generator], mh: torch.Tensor, sg: StackedGraphs, num_sweeps: int,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise: Optional[torch.Tensor] = None, graphs: Graphs = EAGER) -> torch.Tensor:
     """`degree_ordered_sweep` on every graph at once: bits bool [G, B, N] ->
     bool [G, B, N]. Step k sets node order[g, k] of every graph g from one
     gather of the step's neighbour rows [G, D_k, B] and one batched product
@@ -148,13 +176,9 @@ def _sweep_stacked(gen: Optional[torch.Generator], mh: torch.Tensor, sg: Stacked
     xn = torch.cat([mh.transpose(1, 2).to(torch.float32) * 2.0 - 0.5,
                     torch.zeros(num_graphs, 1, b, device=mh.device)], dim=1).reshape(num_graphs * (n + 1), b)
     for s in range(num_sweeps):
-        u = noise[s] if noise is not None else torch.rand(n, num_graphs, b, generator=gen, device=mh.device)
-        for k in range(n):
-            rows, w = sg.step_tables(k)
-            vals = torch.index_select(xn, 0, rows).view(num_graphs, -1, b)  # [G, D_k, B]
-            nbr_sum = torch.bmm(w, vals)[:, 0]
-            new_bit = torch.add(nbr_sum, u[k], alpha=NOISE_SCALE) < sg.thr[k]  # nbr_sum + u * NOISE_SCALE, one rounding
-            xn.index_copy_(0, sg.order_rows[k], new_bit.to(torch.float32))
+        u = noise[s].to(mh.device) if noise is not None else torch.rand(n, num_graphs, b, generator=gen,
+                                                                          device=mh.device)
+        xn = graphs("sweep", lambda x, uu: _sweep_steps(x, uu, sg), xn, u)
     return xn.view(num_graphs, n + 1, b)[:, :n].transpose(1, 2) > 0.5
 
 
@@ -173,17 +197,18 @@ def _probs(logits: torch.Tensor) -> torch.Tensor:
 
 
 def sample_round(gen: Optional[torch.Generator], logits: torch.Tensor, start_bits: torch.Tensor, sg: StackedGraphs,
-                 cfg: MCPGConfig, draws: Optional[BatchDraws] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 cfg: MCPGConfig, draws: Optional[BatchDraws] = None,
+                 graphs: Graphs = EAGER) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """MH samples, their swept bits (bool [G, R*C, N]) and cuts [G, R*C]."""
     change_times = cfg.change_times or max(1, sg.num_nodes // 10)
     with torch.no_grad():
         probs = _probs(logits)
     if draws is None:
-        mh = _mh_stacked(gen, probs, start_bits, change_times)
-        ls_bits = _sweep_stacked(gen, mh, sg, cfg.num_ls)
+        mh = _mh_stacked(gen, probs, start_bits, change_times, graphs=graphs)
+        ls_bits = _sweep_stacked(gen, mh, sg, cfg.num_ls, graphs=graphs)
     else:
-        mh = _mh_stacked(None, probs, start_bits, change_times, nodes=draws.nodes, u=draws.u)
-        ls_bits = _sweep_stacked(None, mh, sg, cfg.num_ls, noise=draws.sweep)
+        mh = _mh_stacked(None, probs, start_bits, change_times, nodes=draws.nodes, u=draws.u, graphs=graphs)
+        ls_bits = _sweep_stacked(None, mh, sg, cfg.num_ls, noise=draws.sweep, graphs=graphs)
     return mh, ls_bits, cut_values_stacked(ls_bits, sg)
 
 
@@ -242,8 +267,10 @@ def solve_maxcut_mcpg_batched(
     """Solve `graphs` (one node count) together on `cuda` unless
     `device="cpu"`. Returns (best_x bool [G, N], best_v f32 [G], one history
     entry an epoch). `timings`, where given, collects each round's seconds
-    (ending in a wait for the device)."""
+    (ending in a wait for the device). The loops replay as CUDA graphs on
+    the card (see the module doc)."""
     dev = resolve_device(device)
+    loops = Graphs()
     sg = StackedGraphs.build(graphs, dev)
     num_graphs, n = sg.num_graphs, sg.num_nodes
     C, R = cfg.total_mcmc_num, cfg.repeat_times
@@ -252,7 +279,7 @@ def solve_maxcut_mcpg_batched(
     start_xs = torch.rand(num_graphs, C, n, generator=gen, device=dev) < 0.5
     start_xs[:, :, 0] = False
     # warm start: sweeps of the initial chains (MCPG.py:342-348 analogue)
-    best_xs = _sweep_stacked(gen, start_xs, sg, cfg.warmup_ls_rounds)
+    best_xs = _sweep_stacked(gen, start_xs, sg, cfg.warmup_ls_rounds, graphs=loops)
     best_vs = cut_values_stacked(best_xs, sg)
     start_bits = best_xs.repeat(1, R, 1)
 
@@ -263,7 +290,7 @@ def solve_maxcut_mcpg_batched(
         logits, optimizer = new_logits(num_graphs, n, cfg, dev)  # per-epoch reset
         for _ in range(rounds_per_epoch):
             t_round = time.time()
-            mh, ls_bits, cuts = sample_round(gen, logits, start_bits, sg, cfg)
+            mh, ls_bits, cuts = sample_round(gen, logits, start_bits, sg, cfg, graphs=loops)
             best_xs, best_vs, start_bits = reduce_round(ls_bits, cuts, best_xs, best_vs, R)
             update_round(logits, optimizer, mh, cuts, sg, cfg.sample_epoch_num)
             if timings is not None:

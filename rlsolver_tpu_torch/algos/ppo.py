@@ -10,8 +10,18 @@ permutation of the T * B transitions cut into `num_minibatches`
 minibatches, each one step of clip_by_global_norm(max_grad_norm) and Adam
 (eps 1e-5, step size annealed linearly to 0 over every update of the run).
 The Gumbel draws and the permutations come from the generator unless the
-caller injects them (`PPODraws`). The data-parallel form
-(`train_ppo_sharded`) waits for the port of `parallel/`.
+caller injects them (`PPODraws`).
+
+The data-parallel form (`make_ppo_iteration(..., group=)`,
+`train_ppo(..., mesh=)`, also named `train_ppo_sharded`; S2V_PPO's DDP,
+`S2V_PPO/train_ddp.py:16-258`) shards the envs over the ranks of a
+`parallel` mesh and keeps the model and its Adam replicated. Each rank draws its own rollout noise (the state's
+`shard_generator`, JAX's `fold_in` of the shard index); the permutations
+stay replicated (the JAX package folds only the rollout key), so every rank
+cuts its own batch by the same permutation. In every minibatch the
+advantages' mean and variance and the gradients are `pmean`'d (one flat
+all-reduce, before the clip), and the metrics are `pmean`'d, the best cut
+`pmax`'d.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from rlsolver_tpu_torch.envs.flip_mdp import FlipMdpEnv, FlipMdpState
 from rlsolver_tpu_torch.models.transformer import Dense
 from rlsolver_tpu_torch.ops.sampling import gumbel_noise
 from rlsolver_tpu_torch.optim import ClippedAdam
+from rlsolver_tpu_torch.parallel import mesh as mesh_lib
 
 
 class MLPActorCritic(nn.Module):
@@ -81,11 +92,13 @@ class PPOTrainState(NamedTuple):
     obs: torch.Tensor
     generator: torch.Generator
     iteration: int
+    shard_generator: Optional[torch.Generator] = None  # a rank's own rollout draws, when sharded
 
 
 class PPODraws(NamedTuple):
     """An iteration's draws: Gumbel noise f32 [T, B, N] of the rollout's
-    actions and the epochs' permutations int [E, T * B]."""
+    actions and the epochs' permutations int [E, T * B] (a rank's own B
+    envs, when sharded)."""
 
     gumbel: torch.Tensor
     perms: torch.Tensor
@@ -113,11 +126,15 @@ def make_optimizer(model: MLPActorCritic, cfg: PPOConfig) -> ClippedAdam:
     return ClippedAdam(model.parameters(), cfg.lr, max_norm=cfg.max_grad_norm, eps=1e-5, schedule_steps=steps)
 
 
-def make_ppo_iteration(env: FlipMdpEnv, cfg: PPOConfig):
+def make_ppo_iteration(env: FlipMdpEnv, cfg: PPOConfig, group=None):
     """iteration(state, draws=None) -> (state, metrics): one PPO iteration
     (see the module doc), the model and its Adam updated in place. metrics:
     loss (mean over the minibatches), mean_cut and best_cut of the envs
-    after the rollout, mean_reward (0-d tensors)."""
+    after the rollout, mean_reward (0-d tensors). `group` (a `parallel`
+    mesh or process group) makes it the data-parallel iteration."""
+
+    def pmean(x):
+        return mesh_lib.pmean(x, group)
 
     def loss_fn(model, obs_b, act_b, logp_b, adv_b, ret_b, val_b):
         logits, value = model(obs_b)
@@ -137,13 +154,14 @@ def make_ppo_iteration(env: FlipMdpEnv, cfg: PPOConfig):
 
     def iteration(state: PPOTrainState, draws: Optional[PPODraws] = None):
         model, optimizer, gen = state.model, state.optimizer, state.generator
+        roll_gen = state.shard_generator or gen
         env_state, obs = state.env_state, state.obs
         dev = obs.device
         outs = []
         with torch.no_grad():
             for t in range(cfg.horizon):
                 logits, value = model(obs)
-                noise = gumbel_noise(logits.shape, gen, dev) if draws is None else draws.gumbel[t].to(dev)
+                noise = gumbel_noise(logits.shape, roll_gen, dev) if draws is None else draws.gumbel[t].to(dev)
                 action = (noise + logits).argmax(dim=-1)
                 logprob = torch.log_softmax(logits, dim=-1).gather(1, action[:, None])[:, 0]
                 env_state, next_obs, reward, done = env.step(env_state, action)
@@ -164,58 +182,83 @@ def make_ppo_iteration(env: FlipMdpEnv, cfg: PPOConfig):
             for idx in idxs:
                 obs_b, act_b, logp_b, adv_b, ret_b, val_b = (x[idx] for x in batch)
                 if cfg.norm_adv:
-                    mean = adv_b.mean()
-                    var = torch.mean((adv_b - mean) ** 2)
+                    mean = pmean(adv_b.mean())
+                    var = pmean(torch.mean((adv_b - mean) ** 2))
                     adv_b = (adv_b - mean) / (torch.sqrt(var) + 1e-8)
                 loss = loss_fn(model, obs_b, act_b, logp_b, adv_b, ret_b, val_b)
                 optimizer.zero_grad()
                 loss.backward()
+                mesh_lib.pmean_grads(optimizer.params, group)  # DDP's gradient all-reduce
                 optimizer.step()
                 losses.append(loss.detach())
         metrics = {
-            "loss": torch.stack(losses).reshape(cfg.update_epochs, -1).mean(dim=1).mean(),
-            "mean_cut": env_state.cut.mean(),
-            "best_cut": env_state.cut.max(),
-            "mean_reward": rewards.mean(),
+            "loss": pmean(torch.stack(losses).reshape(cfg.update_epochs, -1).mean(dim=1).mean()),
+            "mean_cut": pmean(env_state.cut.mean()),
+            "best_cut": mesh_lib.pmax(env_state.cut.max(), group),
+            "mean_reward": pmean(rewards.mean()),
         }
-        return PPOTrainState(model, optimizer, env_state, obs, gen, state.iteration + 1), metrics
+        return state._replace(env_state=env_state, obs=obs, iteration=state.iteration + 1), metrics
 
     return iteration
 
 
 def init_ppo_state(env: FlipMdpEnv, cfg: PPOConfig, num_envs: int, model: Optional[MLPActorCritic] = None,
-                   xs: Optional[torch.Tensor] = None) -> PPOTrainState:
+                   xs: Optional[torch.Tensor] = None, group=None) -> PPOTrainState:
     """The env reset (from `cfg.start_str` where given, else random bits
     from the generator or the injected `xs`), a fresh model (or `model`) and
-    its optimizer, the generator seeded with cfg.seed."""
+    its optimizer, the generator seeded with cfg.seed. With `group` the
+    reset draws all `num_envs` envs, every rank takes rank 0's bits and
+    model (a broadcast) and keeps its own envs (`xs`, where injected, is
+    already the rank's), and gets a generator of its own rollout draws."""
     gen = torch.Generator(device=env.device)
     gen.manual_seed(cfg.seed)
     start_bits = None
     if cfg.start_str is not None:
         start_bits = SolutionCodec(env.num_nodes).str_to_bits(cfg.start_str)
-    env_state, obs = env.reset(gen, num_envs, start_bits=start_bits, xs=xs)
+    if xs is None and start_bits is None and group is not None:
+        xs = torch.rand(num_envs, env.num_nodes, generator=gen, device=env.device) < 0.5
+        xs = mesh_lib.shard_env_batch(group, mesh_lib.replicated(xs, group))
+    local = num_envs // mesh_lib.world_size(group) if xs is None else xs.shape[0]
+    env_state, obs = env.reset(gen, local, start_bits=start_bits, xs=xs)
     if model is None:
         model = MLPActorCritic(env.num_nodes, seed=cfg.seed)
-    model = model.to(env.device)
-    return PPOTrainState(model, make_optimizer(model, cfg), env_state, obs, gen, 0)
+    model = mesh_lib.replicated(model.to(env.device), group)
+    return PPOTrainState(model, make_optimizer(model, cfg), env_state, obs, gen, 0,
+                         mesh_lib.shard_generator(cfg.seed, group, env.device))
 
 
 def train_ppo(graph: Graph, cfg: PPOConfig = PPOConfig(), model: Optional[MLPActorCritic] = None, device=None,
-              timings: Optional[list] = None):
-    """PPO on one card (or the CPU). Returns (final state, metrics history:
-    one dict of floats an iteration). `timings`, where given, collects each
-    iteration's seconds (ending in a wait for the device)."""
+              timings: Optional[list] = None, mesh=None, iterations: Optional[int] = None):
+    """PPO on one card (or the CPU). With `mesh` (a `parallel` mesh; None or
+    one rank: one process) every rank of it runs this, S2V_PPO's DDP:
+    `num_envs / ranks` envs a rank (RLSolver's `local_num_envs`,
+    `train_ddp.py:40-41`), the model and its Adam replicated, every
+    minibatch's gradients `pmean`'d. Returns (this rank's final state, the
+    metrics history: one dict of floats an iteration, equal on every rank).
+    `timings`, where given, collects each iteration's seconds (ending in a
+    wait for the device). `iterations` stops the run early (the step size
+    still annealed over `cfg.num_iterations`)."""
+    group = mesh_lib.group_of(mesh)
+    if cfg.num_envs % mesh_lib.world_size(group):
+        raise ValueError(f"num_envs {cfg.num_envs} does not divide over {mesh_lib.world_size(group)} ranks")
     env = FlipMdpEnv(graph, horizon=cfg.horizon, device=device)
-    iteration = make_ppo_iteration(env, cfg)
-    state = init_ppo_state(env, cfg, cfg.num_envs, model)
+    iteration = make_ppo_iteration(env, cfg, group=group)
+    state = init_ppo_state(env, cfg, cfg.num_envs, model, group=group)
     history: List[dict] = []
-    for _ in range(cfg.num_iterations):
+    for _ in range(cfg.num_iterations if iterations is None else iterations):
         t0 = time.time()
         state, metrics = iteration(state)
         history.append({k: float(v) for k, v in metrics.items()})  # waits for the iteration
         if timings is not None:
             timings.append(time.time() - t0)
     return state, history
+
+
+def train_ppo_sharded(graph: Graph, mesh, cfg: PPOConfig = PPOConfig(), model: Optional[MLPActorCritic] = None,
+                      device=None, timings: Optional[list] = None, iterations: Optional[int] = None):
+    """Data-parallel PPO (S2V_PPO's DDP), the JAX package's name for
+    `train_ppo(..., mesh=mesh)`."""
+    return train_ppo(graph, cfg, model, device, timings, mesh=mesh, iterations=iterations)
 
 
 def a2c_config(cfg: Optional[PPOConfig] = None) -> PPOConfig:

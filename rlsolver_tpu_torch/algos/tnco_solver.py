@@ -14,8 +14,15 @@ One MCPG round (`make_tnco_mcpg_step`):
      beats the chain's incumbent;
   4. one Adam step (optax's plain `adam`) on mean(logp(mh) * (v - mean v)):
      the cost is minimized.
-The data-parallel form (`solve_tnco_mcpg_sharded`) waits for the port of
-`parallel/`.
+The data-parallel form (`make_tnco_mcpg_step(..., group=)`,
+`solve_tnco_mcpg(..., mesh=)`, also named `solve_tnco_mcpg_sharded`;
+BASELINE config 5) shards the chains over the ranks of a `parallel` mesh
+and keeps the policy and its Adam replicated: each rank draws its own MH
+proposals and local-search noise (the state's `shard_generator`, JAX's
+`fold_in` of the shard index; the replicated generator on one rank), the
+mean cost and the gradients are `pmean`'d (one flat all-reduce) and the
+incumbent `pmin`'d. Sharded, the step runs the MH scan even with
+`sampler="fused"`, as the JAX package does (`tnco_solver.py:108`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from rlsolver_tpu_torch.models.policy import BernoulliPolicy
 from rlsolver_tpu_torch.ops.kernels.mh_sampler import mh_sample_fused
 from rlsolver_tpu_torch.ops.sampling import bernoulli_logp, metropolis_bitflip_scan
 from rlsolver_tpu_torch.optim import ClippedAdam
+from rlsolver_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -81,14 +89,17 @@ class TncoMcpgConfig:
 
 class TncoMcpgState(NamedTuple):
     """The policy (logits), its Adam, the generator, and the incumbents'
-    priorities [C, R] and costs [C]. The step updates the policy and its
-    Adam in place and returns new incumbents."""
+    priorities [C, R] and costs [C] (this rank's chains when sharded). The
+    step updates the policy and its Adam in place and returns new
+    incumbents. `shard_generator` draws a rank's own proposals and noise
+    when the chains are sharded over more than one rank."""
 
     policy: BernoulliPolicy
     optimizer: ClippedAdam
     generator: torch.Generator
     best_fs: torch.Tensor
     best_vs: torch.Tensor
+    shard_generator: Optional[torch.Generator] = None
 
 
 class TncoRoundDraws(NamedTuple):
@@ -104,15 +115,18 @@ def _kernel_seed(gen: torch.Generator) -> int:
     return int(torch.randint(0, 2**31 - 1, (1,), generator=gen, device=gen.device))
 
 
-def make_tnco_mcpg_step(env: TncoEnv, cfg: TncoMcpgConfig):
+def make_tnco_mcpg_step(env: TncoEnv, cfg: TncoMcpgConfig, group=None):
     """step(state, draws=None) -> (state, {"best", "mean"}): one round (see
     the module doc). With `draws` the scan sampler's and the local search's
-    draws are injected."""
+    draws are injected (a rank's own, when sharded). `group` (a `parallel`
+    mesh or process group) shards the chains over its ranks."""
     if cfg.sampler not in ("scan", "fused"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    fused = cfg.sampler == "fused" and group is None
 
     def step(state: TncoMcpgState, draws: Optional[TncoRoundDraws] = None):
-        policy, optimizer, gen = state.policy, state.optimizer, state.generator
+        policy, optimizer = state.policy, state.optimizer
+        gen = state.shard_generator or state.generator
         with torch.no_grad():
             probs = policy()
         bits = env.edge_sorts_to_bits(env.priorities_to_edge_sorts(state.best_fs))
@@ -120,7 +134,7 @@ def make_tnco_mcpg_step(env: TncoEnv, cfg: TncoMcpgConfig):
         if draws is not None:
             mh = metropolis_bitflip_scan(None, probs, tiled, draws.nodes.shape[0], draws.nodes.to(tiled.device),
                                          draws.u.to(tiled.device))
-        elif cfg.sampler == "fused":
+        elif fused:
             mh = mh_sample_fused(_kernel_seed(gen), probs, tiled, cfg.mh_rounds)
         else:
             mh = metropolis_bitflip_scan(gen, probs, tiled, cfg.mh_rounds)
@@ -136,38 +150,50 @@ def make_tnco_mcpg_step(env: TncoEnv, cfg: TncoMcpgConfig):
         best_fs = torch.where(better[:, None], cand_fs, state.best_fs)
         best_vs = torch.where(better, cand_vs, state.best_vs)
 
-        mean_v = vs.mean()
+        mean_v = mesh_lib.pmean(vs.mean(), group)
         adv = vs - mean_v
         loss = torch.mean(bernoulli_logp(policy(), mh) * adv)
         optimizer.zero_grad()
         loss.backward()
+        mesh_lib.pmean_grads(optimizer.params, group)
         optimizer.step()
-        metrics = {"best": best_vs.min(), "mean": mean_v}
-        return TncoMcpgState(policy, optimizer, gen, best_fs, best_vs), metrics
+        metrics = {"best": mesh_lib.pmin(best_vs.min(), group), "mean": mean_v}
+        return state._replace(best_fs=best_fs, best_vs=best_vs), metrics
 
     return step
 
 
-def init_tnco_mcpg_state(env: TncoEnv, cfg: TncoMcpgConfig, sorts: Optional[torch.Tensor] = None) -> TncoMcpgState:
+def init_tnco_mcpg_state(env: TncoEnv, cfg: TncoMcpgConfig, sorts: Optional[torch.Tensor] = None,
+                         group=None) -> TncoMcpgState:
     """Random incumbents (or `sorts` [C, R]), logits 0, a fresh Adam, the
-    generator seeded with cfg.seed."""
+    generator seeded with cfg.seed. With `group` every rank draws the
+    global incumbents, takes rank 0's (a broadcast) and keeps its own rows,
+    and gets a generator of its own draws."""
     gen = torch.Generator(device=env.device)
     gen.manual_seed(cfg.seed)
     if sorts is None:
         sorts = env.random_edge_sorts(gen, cfg.num_chains)
-    fs = env.ranks_to_priorities(sorts.to(env.device))
+    sorts = mesh_lib.shard_env_batch(group, mesh_lib.replicated(sorts.to(env.device), group))
+    fs = env.ranks_to_priorities(sorts)
     vs = env.obj_priorities(fs)
     policy = BernoulliPolicy(env.num_bits, device=env.device)
-    return TncoMcpgState(policy, ClippedAdam(policy.parameters(), cfg.lr, max_norm=None), gen, fs, vs)
+    return TncoMcpgState(policy, ClippedAdam(policy.parameters(), cfg.lr, max_norm=None), gen, fs, vs,
+                         mesh_lib.shard_generator(cfg.seed, group, env.device))
 
 
 def solve_tnco_mcpg(env: TncoEnv, cfg: TncoMcpgConfig = TncoMcpgConfig(),
-                    timings: Optional[list] = None) -> Tuple[np.ndarray, float, list]:
-    """MCPG on one card (or the CPU: the env's device). Returns (best order
-    [R], its log10 cost, the best cost after each round). `timings`, where
-    given, collects each round's seconds (ending in a wait for the device)."""
-    step = make_tnco_mcpg_step(env, cfg)
-    state = init_tnco_mcpg_state(env, cfg)
+                    timings: Optional[list] = None, mesh=None) -> Tuple[np.ndarray, float, list]:
+    """MCPG on the env's device. With `mesh` (a `parallel` mesh; None or one
+    rank: one process) every rank of it runs this: the chains sharded, the
+    policy replicated, `pmean`'d gradients and `pmin`'d incumbents. Returns
+    (best order [R], its log10 cost, the best cost after each round), the
+    global ones on every rank. `timings`, where given, collects each
+    round's seconds (ending in a wait for the device)."""
+    group = mesh_lib.group_of(mesh)
+    if cfg.num_chains % mesh_lib.world_size(group):
+        raise ValueError(f"num_chains {cfg.num_chains} does not divide over {mesh_lib.world_size(group)} ranks")
+    step = make_tnco_mcpg_step(env, cfg, group=group)
+    state = init_tnco_mcpg_state(env, cfg, group=group)
     history = []
     for _ in range(cfg.num_rounds):
         t0 = time.time()
@@ -175,6 +201,15 @@ def solve_tnco_mcpg(env: TncoEnv, cfg: TncoMcpgConfig = TncoMcpgConfig(),
         history.append(float(metrics["best"]))  # waits for the round
         if timings is not None:
             timings.append(time.time() - t0)
-    b = int(torch.argmin(state.best_vs))
-    order = env.priorities_to_edge_sorts(state.best_fs[b : b + 1])[0].cpu().numpy()
-    return order, float(state.best_vs[b]), history
+    best_fs = mesh_lib.all_gather_rows(state.best_fs, group)
+    best_vs = mesh_lib.all_gather_rows(state.best_vs, group)
+    b = int(torch.argmin(best_vs))
+    order = env.priorities_to_edge_sorts(best_fs[b : b + 1])[0].cpu().numpy()
+    return order, float(best_vs[b]), history
+
+
+def solve_tnco_mcpg_sharded(env: TncoEnv, mesh, cfg: TncoMcpgConfig = TncoMcpgConfig(),
+                            timings: Optional[list] = None) -> Tuple[np.ndarray, float, list]:
+    """Data-parallel MCPG on TNCO (BASELINE config 5), the JAX package's
+    name for `solve_tnco_mcpg(..., mesh=mesh)`."""
+    return solve_tnco_mcpg(env, cfg, timings, mesh=mesh)

@@ -16,6 +16,9 @@ parameters and Adam's moments): those it names in `restore` are put back
 after the warm-up, so that the warm-up leaves no trace. A training step takes Adam's bias
 corrections as an input (`ClippedAdam.corrections()`), so that its count
 stays on the host.
+
+`Graphs` keeps one `CapturedCall` per loop name and input shapes, for a loop
+called again with other shapes (a solve's warm start and its rounds).
 """
 
 from __future__ import annotations
@@ -58,3 +61,23 @@ class CapturedCall:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=side):
             self.outputs = self.fn(*self.inputs)
+
+
+class Graphs:
+    """Captured loops, one CUDA graph per loop `name` and input shapes (none
+    when `enabled` is False, or off the card). A name's `fn` must be the
+    same computation at every call."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled, self.calls = enabled, {}
+
+    def __call__(self, name: str, fn: Callable, *inputs: torch.Tensor):
+        if not self.enabled:
+            return fn(*inputs)
+        key = (name, *(tuple(x.shape) for x in inputs))
+        if key not in self.calls:
+            self.calls[key] = CapturedCall(fn)
+        return self.calls[key](*inputs)
+
+
+EAGER = Graphs(enabled=False)

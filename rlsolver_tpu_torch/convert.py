@@ -41,7 +41,13 @@ The JAX state arrives as numpy arrays (the caller converts with
     (`flax_state_dict`: the port keeps flax's names); VDN/QMIX's `{"q":
     tree, "mix": tree}` becomes one `MixParams` state dict
     (`value_mix_state_dict`), and its optax state converts with
-    `adam_state(..., tree_fn=value_mix_state_dict)`.
+    `adam_state(..., tree_fn=value_mix_state_dict)`;
+  * the state of a sharded form (`shard_map` over a mesh axis): its
+    replicated leaves (params, optimizer state, keys) convert as above on
+    every rank, and its sharded leaves (env state, incumbents: [B, ...] on
+    the mesh axis) split into the ranks' rows (`split_by_rank`), rank r
+    holding rows r * B / n to (r + 1) * B / n, as `parallel.mesh.
+    shard_env_batch` takes them.
 """
 
 from __future__ import annotations
@@ -237,3 +243,25 @@ def load_npz_tree(path: str):
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return tree
+
+
+def split_by_rank(tree, world_size: int):
+    """A tree of [B, ...] numpy leaves (a sharded state's rows) -> one tree a
+    rank, rank r's leaves its B / world_size rows. Dicts, lists, tuples and
+    NamedTuples keep their structure."""
+
+    def part(x, r):
+        if isinstance(x, dict):
+            return {k: part(v, r) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(part(v, r) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(part(v, r) for v in x)
+        arr = np.asarray(x)
+        if arr.shape[0] % world_size:
+            raise ValueError(f"{arr.shape[0]} rows do not divide over {world_size} ranks")
+        per = arr.shape[0] // world_size
+        return arr[r * per : (r + 1) * per]
+
+    return [part(tree, r) for r in range(world_size)]
+

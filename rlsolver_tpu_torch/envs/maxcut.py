@@ -83,21 +83,25 @@ class MaxcutEnv:
         num_iters: int = 8,
         num_spin: int = 8,
         noise_std: float = 0.3,
+        noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Noisy multi-flip phase, then one greedy 1-flip sweep."""
+        """Noisy multi-flip phase, then one greedy 1-flip sweep. The
+        standard normals (the threshold's, then each iteration's) come from
+        `gen` unless `noise` f32 [num_iters + 1, B, N] gives them."""
         if vs is None:
             vs = self.obj(xs)
         gains = self.gains(xs)
         # per-node spread across sims, as in the reference
         rng_std = (gains.max(dim=0, keepdim=True).values - gains.min(dim=0, keepdim=True).values) * noise_std
 
-        def noisy():
-            return gains + torch.randn(gains.shape, generator=gen, device=gains.device) * rng_std
+        def noisy(i):
+            z = torch.randn(gains.shape, generator=gen, device=gains.device) if noise is None else noise[i].to(gains)
+            return gains + z * rng_std
 
         k_small = self.num_nodes - num_spin  # torch.kthvalue is 1-based smallest
-        thresh = torch.sort(noisy(), dim=1).values[:, k_small - 1][:, None]
-        for _ in range(num_iters):
-            xs_try = torch.logical_xor(xs, noisy() > thresh)
+        thresh = torch.sort(noisy(0), dim=1).values[:, k_small - 1][:, None]
+        for i in range(num_iters):
+            xs_try = torch.logical_xor(xs, noisy(i + 1) > thresh)
             xs, vs = update_xs_by_vs(xs, vs, xs_try, self.obj(xs_try))
         return self.sweep_1flip(xs, vs)
 

@@ -21,7 +21,7 @@ The attention is plain tensor code (XLA in the JAX package, not Pallas).
 `ChunkedMHA` keeps the JAX package's bound on the score tensor: above
 `score_budget` bytes of f32 scores it attends a chunk of queries at a time
 (exact: every chunk sees all keys), and under autograd each chunk is
-recomputed in the backward pass (`torch.utils.checkpoint`), as
+recomputed in the backward pass (`_RecomputedAttention`), as
 `jax.checkpoint` does, so that the [B, H, N, N] scores never exist whole:
 at 256 sims and N = 2000 they would take 16 GB.
 """
@@ -34,7 +34,6 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from rlsolver_tpu_torch.device import resolve_device
 
@@ -108,6 +107,31 @@ class _Merge(nn.Module):
         return torch.einsum("bnhk,hkd->bnd", x, self.kernel) + self.bias
 
 
+def _attend(qc: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, H, qc, dh] queries against all keys and values -> [B, H, qc, dh]."""
+    return torch.softmax(qc @ k.transpose(-1, -2), dim=-1) @ v
+
+
+class _RecomputedAttention(torch.autograd.Function):
+    """`_attend` keeping only its inputs for the backward pass, which
+    recomputes the chunk's scores: what `torch.utils.checkpoint` does, by
+    hand, since its first call in a process imports `torch._dynamo` (and
+    with it sympy and torch.distributed's packages), seconds that every
+    fresh process, a spawned rank too, would pay in its first update."""
+
+    @staticmethod
+    def forward(ctx, qc, k, v):
+        ctx.save_for_backward(qc, k, v)
+        return _attend(qc, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _attend(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
 class ChunkedMHA(nn.Module):
     """Multi-head attention whose f32 score tensor stays within
     `score_budget` bytes (see the module notes)."""
@@ -125,19 +149,16 @@ class ChunkedMHA(nn.Module):
         q, k, v = (t.transpose(1, 2).contiguous() for t in (self.query(q_in), self.key(kv_in), self.value(kv_in)))
         q = q / torch.sqrt(torch.tensor(float(q.shape[-1]), device=q.device))
         b, n = q.shape[0], q.shape[2]
-
-        def attend(qc):  # [B, H, qc, dh] -> [B, H, qc, dh]
-            return torch.softmax(qc @ k.transpose(-1, -2), dim=-1) @ v
-
         if 4 * b * h * n * n <= self.score_budget:
-            out = attend(q)
+            out = _attend(q, k, v)
         else:
             qc = max(1, self.score_budget // (4 * b * h * n))
             nc = -(-n // qc)
             qc = -(-n // nc)
             grad = torch.is_grad_enabled() and q.requires_grad
             chunks = [q[:, :, i : i + qc] for i in range(0, n, qc)]
-            out = torch.cat([checkpoint(attend, c, use_reentrant=False) if grad else attend(c) for c in chunks], 2)
+            attend = _RecomputedAttention.apply if grad else _attend
+            out = torch.cat([attend(c, k, v) for c in chunks], 2)
         return self.out(out.transpose(1, 2))
 
 

@@ -10,7 +10,9 @@
     `ops/kernels/mcpg_sweep.py` (tested).
   * edge_pair_sweep — MCPG's maxcut_edge local search: for each edge in
     descending endpoint-degree order, the pair (x_r, x_c) that maximizes
-    the pair's noisy local cut (`MCPG/sampling.py:130-180`).
+    the pair's noisy local cut (`MCPG/sampling.py:130-180`); on the card
+    each chunk of EDGE_CHUNK edges replays as a CUDA graph (the edge index
+    a device tensor, so one graph serves every chunk).
   * colored_sweep — the anti-majority update of a whole color class at
     once, from one [B, N] x [N, N] product (nodes of a class share no edge).
 """
@@ -22,8 +24,11 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from rlsolver_tpu_torch.capture import Graphs
 from rlsolver_tpu_torch.core.graph import Graph
 from rlsolver_tpu_torch.device import resolve_device
+
+EDGE_CHUNK = 512  # edges of one edge_pair_sweep graph
 
 
 class SweepData(NamedTuple):
@@ -81,16 +86,18 @@ def degree_ordered_sweep(
 class EdgeSweepData(NamedTuple):
     """Static tensors of `edge_pair_sweep`, one row per edge in sweep order
     (descending wdeg[r] + wdeg[c], `np.argsort`'s default sort on the same
-    f32 keys as the JAX package)."""
+    f32 keys as the JAX package), and the sweep's captured chunks."""
 
     ends: torch.Tensor  # [E, 2] int64 (r, c)
     ends_rev: torch.Tensor  # [E, 2] int64 (c, r)
     nbrs: torch.Tensor  # [E, 2 * max_deg] int64 neighbours of r, then of c (sentinel N)
     nbr_w: torch.Tensor  # [E, 2, 1, max_deg] f32 their weights
-    w: List[float]  # w_rc
+    w: torch.Tensor  # [E, 1, 1] f32 w_rc
     rest: torch.Tensor  # [E, 2, 1] f32 wdeg[r] - w_rc, wdeg[c] - w_rc
     pair_w: torch.Tensor  # [E, 4, 1] f32 w_rc where the choice (x_r, x_c) cuts the edge: 01, 10
+    choice_bits: torch.Tensor  # [2, 4] f32 the (x_r, x_c) of the choices 00, 01, 10, 11
     num_nodes: int
+    graphs: Graphs  # one CUDA graph a chunk shape (`edge_pair_sweep`)
 
     @staticmethod
     def build(graph: Graph, device=None) -> "EdgeSweepData":
@@ -106,15 +113,34 @@ class EdgeSweepData(NamedTuple):
             ends_rev=torch.from_numpy(ends[:, ::-1].copy()).to(device),
             nbrs=torch.from_numpy(nbrs[ends].reshape(len(ends), -1)).long().to(device),
             nbr_w=torch.from_numpy(nbr_w[ends][:, :, None, :]).to(device),
-            w=ww.tolist(),
+            w=torch.from_numpy(ww.astype(np.float32)[:, None, None]).to(device),
             rest=torch.from_numpy((wdeg[ends] - ww[:, None])[:, :, None]).to(device),
             pair_w=torch.from_numpy(ww[:, None, None] * np.array([0, 1, 1, 0], np.float32)[None, :, None]).to(device),
+            choice_bits=torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.0, 1.0, 0.0, 1.0]], device=device),
             num_nodes=graph.num_nodes,
+            graphs=Graphs(),
         )
 
 
-# the (x_r, x_c) of the choices 00, 01, 10, 11: [2, 4]
-_CHOICE_BITS = torch.tensor([[0.0, 0.0, 1.0, 1.0], [0.0, 1.0, 0.0, 1.0]])
+def _edge_chunk(xn: torch.Tensor, u: torch.Tensor, first: torch.Tensor, data: EdgeSweepData,
+                noise_scale: float) -> torch.Tensor:
+    """Edges first .. first + len(u) - 1 (first: int64 [1] on xn's device)
+    on the node-major state xn [N + 1, B], written in place, with their
+    uniforms u [C, 4, B]."""
+    b = xn.shape[1]
+    for j in range(u.shape[0]):
+        e = first + j
+
+        def row(t):
+            return torch.index_select(t, 0, e)[0]
+
+        vals = torch.index_select(xn, 0, row(data.nbrs)).view(2, -1, b)
+        h = torch.bmm(row(data.nbr_w), vals)[:, 0]  # [2, B]: neighbours in set 1
+        s = h - row(data.w) * torch.index_select(xn, 0, row(data.ends_rev))  # less the partner
+        sc = torch.stack([s, row(data.rest) - s], dim=1)  # [node r | c, value 0 | 1, B]
+        f = (sc[0][:, None] + sc[1][None, :]).view(4, b) + row(data.pair_w) + u[j] * noise_scale
+        xn.index_copy_(0, row(data.ends), torch.index_select(data.choice_bits, 1, torch.argmax(f, dim=0)))
+    return xn
 
 
 def edge_pair_sweep(
@@ -134,25 +160,25 @@ def edge_pair_sweep(
     in the order 00, 01, 10, 11). The JAX package keeps the field h = x A
     up to date with rank-1 updates and reads it through one-hot products;
     this reads s_r from r's neighbour list, the same sums on integer weights.
-    The uniforms [num_sweeps * E, 4, B] come from `gen` unless `noise`
-    gives them."""
+    The uniforms [num_sweeps * E, 4, B] come from `gen`, a chunk of
+    EDGE_CHUNK edges at a time, unless `noise` gives them. On the card each
+    chunk replays as a CUDA graph (`data.graphs`)."""
     num_edges = data.ends.shape[0]
     b = xs.shape[0]
     # node-major, with the sentinel row N (always 0) for padded neighbours
     xn = torch.cat([xs.t().to(torch.float32), torch.zeros(1, b, device=xs.device)])
-    choice_bits = _CHOICE_BITS.to(xs.device)
-    for i in range(num_sweeps * num_edges):
-        e = i % num_edges
-        vals = torch.index_select(xn, 0, data.nbrs[e]).view(2, -1, b)
-        h = torch.bmm(data.nbr_w[e], vals)[:, 0]  # [2, B]: neighbours in set 1
-        s = torch.sub(h, torch.index_select(xn, 0, data.ends_rev[e]), alpha=data.w[e])  # less the partner
-        sc = torch.stack([s, data.rest[e] - s], dim=1)  # [node r | c, value 0 | 1, B]
-        f = (sc[0][:, None] + sc[1][None, :]).view(4, b) + data.pair_w[e]
-        if noise is not None:
-            f = f + noise[i] * noise_scale
-        elif noise_scale:
-            f = f + torch.rand(4, b, generator=gen, device=xs.device) * noise_scale
-        xn.index_copy_(0, data.ends[e], torch.index_select(choice_bits, 1, torch.argmax(f, dim=0)))
+    for sweep in range(num_sweeps):
+        for c0 in range(0, num_edges, EDGE_CHUNK):
+            c = min(EDGE_CHUNK, num_edges - c0)
+            if noise is not None:
+                u = noise[sweep * num_edges + c0 : sweep * num_edges + c0 + c].to(xs.device)
+            elif noise_scale:
+                u = torch.rand(c, 4, b, generator=gen, device=xs.device)
+            else:
+                u = torch.zeros(c, 4, b, device=xs.device)
+            first = torch.tensor([c0], dtype=torch.int64, device=xs.device)
+            xn = data.graphs(f"edges {noise_scale}", lambda x, uu, e: _edge_chunk(x, uu, e, data, noise_scale),
+                             xn, u, first)
     return xn[:-1].t() > 0.5
 
 
