@@ -2,7 +2,14 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its seconds; any failure exits non-zero):
+Phases (each prints its seconds; any failure exits non-zero). The phases
+problems, eco, s2v, jumanji, beamforming, tsp, l2o, rlor, agents and cli
+(SIDE_PHASES) run in a second process on the same card (`chip_smoke.py
+--side`, which the script starts itself), started after the build and
+joined before the time phase: they hold no state that another phase reads
+and the kernels line times none of their paths, and their loops, most of
+them bound by the host's launches, overlap the other phases. Their output
+is printed when they are joined; their launches come back on its last line.
   1. build   — nvcc builds every kernel source in rlsolver_tpu_torch/csrc for
                sm_90a, one compiler per source, all at once;
   2. check   — every kernel's wrapper runs on the card at its path's shapes
@@ -109,10 +116,11 @@ Phases (each prints its seconds; any failure exits non-zero):
                stopped at 2 s for partitioning and set cover, cut from 5 s),
                and `--alg milp --milp-time-limit 5` on maxcut;
      l2a_dist — distribution-wise L2A at the BA_1000 cell of DIST_TABLE's
-               L2A column (256 sims x 4 repeats, top_k 100, seq_len 8, embed
-               32, 2 sweeps; training cut from 60 to 20 iterations of fresh
-               BA graphs), then `evaluate_l2a_packed` (512 sims x 16 repeats,
-               8 sweeps, 256 rounds) on BA_1000_ID0 and ID1; the
+               L2A column (eval/quality.py's `l2a_config`: 256 sims x 4
+               repeats, top_k 100, seq_len 8, embed 32, 2 sweeps; training
+               cut from 60 to 20 iterations of fresh BA graphs), then
+               `evaluate_l2a_packed` (512 sims x 16 repeats, 8 sweeps, 256
+               rounds) on BA_1000_ID0 and ID1; the
                plain sweep versions are made to raise for the run, K4 and
                the 1-flip kernel the rule picks must launch and no other
                sweep, every best cut must equal its host re-score, and the
@@ -135,8 +143,9 @@ Phases (each prints its seconds; any failure exits non-zero):
                the device time by kernel of one QUBO and
                one MaxSAT round (`run_mcpg_multi`);
      mcpg_batch — `solve_maxcut_mcpg_batched` with DIST_TABLE's MCPG protocol
-               (256 x 32 chains, 8 sweeps, 6 epochs of 8 rounds) at full
-               depth on BA_100_ID0..9 and, cut to 2 epochs, on
+               (eval/quality.py's `mcpg_config`: 256 x 32 chains, 8 sweeps,
+               6 epochs of 8 rounds) at full depth on BA_100_ID0..9 and,
+               cut to 2 epochs, on
                BA_1000_ID0..9, each family in one call: best cuts equal to
                their host re-scores, printed
                beside the JAX run's (results_quality/dist_table.csv); the
@@ -146,7 +155,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                colored sweep mode on G22-like beside one of the sequential
                mode, their best cuts within 2% (`run_mcpg_batch`);
      baselines — DIST_TABLE's classical columns, ISCO and PI-GNN at
-               scripts/quality_table.py's budgets and cell protocols
+               eval/quality.py's budgets and cell protocols
                (`run_baselines`): Greedy on BA_100_ID0..9 and BA_1000_ID0..9,
                each cut equal to dist_table.csv's; RandomWalk, SDP, SA (256
                chains x max(2000, 12 N) steps, replayed as CUDA graphs of 250
@@ -170,7 +179,7 @@ Phases (each prints its seconds; any failure exits non-zero):
                100 SA steps and 20 ISCO steps (BA_1000);
      eco     — the committed ECO-DQN network (results_quality/eco_params_BA.pkl,
                loaded by `convert.load_flax_pickle` without JAX) in bf16 at
-               scripts/eco_distribution.py's protocol (50 envs at N <= 500,
+               eval/eco_distribution.py's protocol (50 envs at N <= 500,
                else 32; basin reward 1/N, stagnation punishment 0.01), one
                greedy restart of `evaluate_scan` on BA_100_ID0..9 and, cut
                from ten instances to four, BA_1000_ID0..3: every best cut
@@ -181,13 +190,13 @@ Phases (each prints its seconds; any failure exits non-zero):
                first 100 steps of a BA_1000 rollout, graphed and eager (the
                rollouts replay CUDA graphs of 100 steps, one per step offset,
                held leaf for leaf to the eager rollout on BA_100_ID0) (`run_eco`);
-     s2v     — S2V-DQN at scripts/quality_table.py:228-284's protocol on BA_100
+     s2v     — S2V-DQN at eval/quality.py's protocol (`dqn_configs`) on BA_100
                at full depth (`train_scan` of 6144 loop steps, 32 envs, the
                irreversible S2V env), then one greedy rollout on each of
                BA_100_ID0..9: cuts equal to their host re-scores, mean above
                the RandomWalk column's 234.8, printed beside the JAX run's
                (within 2% expected, not enforced) (`run_s2v`);
-     jumanji — `train_spin_ppo` at scripts/quality_table.py:171-227's protocol
+     jumanji — `train_spin_ppo` at eval/quality.py's protocol (`jumanji_configs`)
                on BA_100 (128 envs x 200 steps), its 100 iterations cut to
                JUMANJI_ITERS = 30 to leave room for the tsp and l2o phases,
                then `make_greedy_evaluator` at 64 envs on BA_100_ID0..9,
@@ -321,9 +330,28 @@ Phases (each prints its seconds; any failure exits non-zero):
                rank's shard shape (1024 chains of G22-like) bit for bit;
                s/step beside the unsharded step and one all-reduce of each
                path's gradient buffer, over NCCL and over gloo;
-  9. cli     — `python -m rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
+     quality — the quality harness (`run_quality`): scripts/torch_instance_wise.py
+               in its default mode (a child process per run) on G14like
+               with BLS for 10 s, started before the parallel phase and
+               run beside it (`start_instance_wise`; it must launch K5 and
+               end with its best equal to the host's re-score); after the
+               parallel phase, eval/quality.py's runner on ER_100 ids 0-1 with
+               greedy and MCPG, twice into one CSV (the second run appends
+               no row; greedy equal to dist_table.csv, MCPG's mean at least
+               JAX's less 1%), that CSV through quality_summary.render with
+               the card's name and power limit, and the committed ER
+               ECO-DQN network through eco_distribution on the same
+               instances (its mean at least dist_table.csv's last ECO run's
+               less 1%); the launches of this process and of the child;
+               then the kernels of the table's runs at their shapes, where
+               no other phase holds them (`quality_kernel_checks`: K3, the
+               sweep engine's kernel and the warm start's 1-flip kernel of
+               instance-wise MCPG on G14like and G70like, the 1-flip kernel
+               of ER_1000's L2A training, K10 at GA's shape on ER_1000_ID0);
+  9. cli     — (the side process's last phase, `run_cli`) `python -m
+               rlsolver_tpu_torch --alg mcpg --fast` on BA_100_ID0
                and on W22-like written as a gset file; then the CLI's `main`
-               in this process with `--alg l2a` and `--alg local_search` on
+               in the side process with `--alg l2a` and `--alg local_search` on
                BA_100_ID0 with and without `--fast`, `--alg sa`, `--alg isco`
                and `--alg ga` on BA_100_ID0 and `--alg vqe` on BA_16_ID0 (each
                re-scored by the CLI, which raises on a mismatch);
@@ -417,12 +445,10 @@ FLIP_KERNELS = {False: "sweep_1flip_weighted", True: "sweep_1flip_weighted_level
 SWEEPS = ("mcpg_sweep", "mcpg_sweep_weighted", "mcpg_sweep_weighted_chunked",
           "sweep_1flip", "sweep_1flip_weighted", "sweep_1flip_weighted_levels")
 # Distribution-wise L2A at the BA_1000 cell of DIST_TABLE's L2A column, as
-# scripts/quality_table.py:349-371 runs it (the training cut from 60 to 20
-# iterations to leave the script's time limit room for the Pattern I
-# phases): the training config, then the packed evaluator's budget
-DIST_TRAIN = dict(num_nodes=1000, num_sims=256, num_repeats=4, top_k=100, seq_len=8, num_iters=20, embed_dim=32,
-                  pretrain_steps=100, ls_sweeps=2, num_validation=0)
-DIST_EVAL = dict(num_rounds=256, num_sims=512, num_repeats=16, num_sweeps=8)
+# eval/quality.py's `l2a_config` and `l2a_eval_kwargs` run it, the training
+# cut from 60 to DIST_ITERS iterations to leave the script's time limit room
+# for the Pattern I phases
+DIST_ITERS = 20
 DIST_INSTANCES = ("BA_1000_ID0", "BA_1000_ID1")
 DIST_PLAIN = 2048  # of the eval's candidates, those the plain K4 sweep checks (N * sweeps Python steps)
 
@@ -657,14 +683,16 @@ def run_l2a_dist(dev, errs: dict) -> dict:
     from rlsolver_tpu_torch.algos import l2a_distribution as l2d
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.eval import quality
     from rlsolver_tpu_torch.ops.kernels import build, codec, engine, mcpg_sweep as sw, sweep_kernel as sk
     from rlsolver_tpu_torch.ops.kernels import weighted_sweep as wsw
     from rlsolver_tpu_torch.optim import ClippedAdam
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
-    cfg = l2d.L2ADistConfig(graph_type=GraphType.BA, **DIST_TRAIN)
-    print(f"  L2ADistConfig {DIST_TRAIN}, then evaluate_l2a_packed {DIST_EVAL}: training cut from 60 to "
-          f"{cfg.num_iters} iterations", flush=True)
+    cfg = quality.l2a_config(GraphType.BA.value, 1000, num_iters=DIST_ITERS)
+    dist_eval = quality.l2a_eval_kwargs(cfg.num_nodes)
+    print(f"  {cfg}, then evaluate_l2a_packed {dist_eval}: training cut from 60 to {cfg.num_iters} iterations",
+          flush=True)
     l2 = engine.l2_bytes(dev)
     graphs = [graph_from_name(name) for name in DIST_INSTANCES]
     sweep_plan, flip_plan = engine.plan_sweep(graphs[0], l2), engine.plan_1flip(graphs[0], l2)
@@ -685,7 +713,7 @@ def run_l2a_dist(dev, errs: dict) -> dict:
         torch.cuda.synchronize()
         train_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        vals, best = l2d.evaluate_l2a_packed(bundle, graphs, seed=0, return_xs=True, timings=eval_t, **DIST_EVAL)
+        vals, best = l2d.evaluate_l2a_packed(bundle, graphs, seed=0, return_xs=True, timings=eval_t, **dist_eval)
         torch.cuda.synchronize()
         eval_peak = torch.cuda.max_memory_allocated()
     finally:
@@ -701,8 +729,8 @@ def run_l2a_dist(dev, errs: dict) -> dict:
 
     print(f"  pretrain {train_t['pretrain'][0]:.3f} s; seconds per training iteration: {spread(iters)}; "
           f"losses {[round(h['loss'], 4) for h in bundle['history'][:3]]}..{round(bundle['history'][-1]['loss'], 4)}")
-    print(f"  eval: {len(blocks)} blocks of 8 rounds of {DIST_EVAL['num_sims']} x {DIST_EVAL['num_repeats']} = "
-          f"{DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates; seconds per round: {spread(per_round)}")
+    print(f"  eval: {len(blocks)} blocks of 8 rounds of {dist_eval['num_sims']} x {dist_eval['num_repeats']} = "
+          f"{dist_eval['num_sims'] * dist_eval['num_repeats']} candidates; seconds per round: {spread(per_round)}")
     print(f"  max_memory_allocated: training {train_peak / 2**30:.2f} GiB, eval {eval_peak / 2**30:.2f} GiB, each "
           f"with the {base / 2**30:.2f} GiB that earlier phases hold; launches {counts}")
     jax_cuts = dict(enumerate(jax_alg_runs("l2a", 1000)[0]))  # the campaign's own run
@@ -741,14 +769,14 @@ def run_l2a_dist(dev, errs: dict) -> dict:
         xk = out
     g0 = graphs[0]
     eng0 = engine.FusedSweepEngine.build(g0, dev)
-    cands = DIST_EVAL["num_sims"] * DIST_EVAL["num_repeats"]
+    cands = dist_eval["num_sims"] * dist_eval["num_repeats"]
     xk = torch.rand(cands, g0.num_nodes, generator=gen, device=dev) < 0.5
-    out = eng0.sweep(4242, xk, DIST_EVAL["num_sweeps"])[:DIST_PLAIN]
+    out = eng0.sweep(4242, xk, dist_eval["num_sweeps"])[:DIST_PLAIN]
     plain_fn = wsw._wsweep_plain if eng0.weighted else sw._sweep_plain
     plain = codec.unpack_bits(plain_fn(eng0.tables, codec.pack_bits(xk[:DIST_PLAIN]), g0.num_nodes,
-                                       DIST_EVAL["num_sweeps"], 0.25, None, 4242), g0.num_nodes)
+                                       dist_eval["num_sweeps"], 0.25, None, 4242), g0.num_nodes)
     require_equal(f"{sweep_k} on {g0.name} (first {DIST_PLAIN} of {cands} candidates, "
-                  f"{DIST_EVAL['num_sweeps']} sweeps)", out, plain, errs, sweep_k)
+                  f"{dist_eval['num_sweeps']} sweeps)", out, plain, errs, sweep_k)
     del flip, adj, xk, out, plain
 
     # where one training iteration and one eval round spend their time
@@ -777,15 +805,15 @@ def run_l2a_dist(dev, errs: dict) -> dict:
           f"{1e3 * host_t['tables']:.1f} ms")
     adj0 = torch.from_numpy(g0.adjacency_dense()).to(dev)
     seq0 = l2d._embed(enc, adj0)
-    xs0 = torch.rand(DIST_EVAL["num_sims"], g0.num_nodes, generator=gen, device=dev) < 0.5
+    xs0 = torch.rand(dist_eval["num_sims"], g0.num_nodes, generator=gen, device=dev) < 0.5
     vs0 = l2d._cut_value_adj(xs0, adj0)
 
     def eval_round():
-        l2d._guided_round(net, seq0, gen, eng0, adj0, xs0, vs0, num_repeats=DIST_EVAL["num_repeats"], top_k=cfg.top_k,
-                          num_sweeps=DIST_EVAL["num_sweeps"])
+        l2d._guided_round(net, seq0, gen, eng0, adj0, xs0, vs0, num_repeats=dist_eval["num_repeats"], top_k=cfg.top_k,
+                          num_sweeps=dist_eval["num_sweeps"])
 
     eval_round()
-    profile_device(f"one eval round on {g0.name} ({DIST_EVAL['num_sims'] * DIST_EVAL['num_repeats']} candidates)",
+    profile_device(f"one eval round on {g0.name} ({dist_eval['num_sims'] * dist_eval['num_repeats']} candidates)",
                    eval_round)
     return counts
 
@@ -794,8 +822,6 @@ MULTI_CHAINS, MULTI_REPEATS = 256, 32  # mcpg_multi at full width: 8192 samples 
 MULTI_ROUNDS = 2  # depth cut from MultiMCPGConfig's 64 rounds
 MULTI_PLAIN = 256  # of the 8192 chains, those K3's plain version checks
 MULTI_EDGE_CHUNKS = 2  # edge-pair sweep chunks held to the eager loop (graph against eager)
-# DIST_TABLE's MCPG protocol, as scripts/quality_table.py:159-165 runs it
-BATCH_CFG = dict(total_mcmc_num=256, repeat_times=32, num_ls=8, max_epoch_num=6, reset_epoch_num=64)
 BATCH_EPOCHS_1000 = 2  # BA_1000's depth cut from 6 epochs, to leave the script's time limit room
 
 
@@ -955,7 +981,7 @@ def run_mcpg_multi(dev, errs: dict) -> dict:
 
 
 def run_mcpg_batch(dev) -> dict:
-    """DIST_TABLE's MCPG protocol (BATCH_CFG) on BA_100_ID0..9 and
+    """DIST_TABLE's MCPG protocol (eval/quality.py's `mcpg_config`) on BA_100_ID0..9 and
     BA_1000_ID0..9, each family in one batched call: prints the seconds,
     s/round, peak memory and each best cut beside its host re-score (equal)
     and the JAX run's (results_quality/dist_table.csv); then the device time
@@ -965,11 +991,12 @@ def run_mcpg_batch(dev) -> dict:
     from rlsolver_tpu_torch.algos.mcpg import MCPGConfig, solve_maxcut_mcpg
     from rlsolver_tpu_torch.capture import Graphs
     from rlsolver_tpu_torch.core.generate import build_g22_like, graph_from_name
+    from rlsolver_tpu_torch.eval import quality
     from rlsolver_tpu_torch.ops.kernels import build
     from rlsolver_tpu_torch.problems.objectives import obj_maxcut
 
-    full = MCPGConfig(**BATCH_CFG, seed=0)
-    print(f"  MCPGConfig {BATCH_CFG}: {full.max_epoch_num} epochs of "
+    full = quality.mcpg_config(seed=0)
+    print(f"  MCPGConfig {quality.MCPG_PROTOCOL}: {full.max_epoch_num} epochs of "
           f"{full.reset_epoch_num // full.sample_epoch_num} rounds, full depth on BA_100; BA_1000 cut to "
           f"{BATCH_EPOCHS_1000} epochs", flush=True)
     build.reset_counts()
@@ -1104,19 +1131,19 @@ def host_cut(state, g):
 
 def run_eco(dev, sizes=(100, 1000)) -> None:
     """The committed ECO-DQN network (results_quality/eco_params_BA.pkl,
-    loaded without JAX) in bf16 at scripts/eco_distribution.py's protocol:
+    loaded without JAX) in bf16 at eval/eco_distribution.py's protocol:
     one greedy restart per instance on BA_100_ID0..9 and BA_1000_ID0..3."""
-    from rlsolver_tpu_torch import convert
-    from rlsolver_tpu_torch.algos.dqn import ROLLOUT_GRAPH_STEPS, DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.algos.dqn import ROLLOUT_GRAPH_STEPS, DQNAgent
     from rlsolver_tpu_torch.core.generate import graph_from_name
-    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv
+    from rlsolver_tpu_torch.eval import eco_distribution as eco
 
-    params = {k: v.to(dev) for k, v in convert.mpnn_state_dict(convert.load_flax_pickle(ECO_PKL)).items()}
-    dcfg = DQNConfig(features=64, n_layers=3, dtype=torch.bfloat16)
+    params = eco.load_params(ECO_PKL, dev)
+    dcfg = eco.dqn_config(32768)  # the network's widths and bf16; a greedy rollout reads nothing else of it
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for n in sizes:
-        cfg = SpinSystemConfig(num_envs=50 if n <= 500 else 32, basin_reward=1.0 / n, stag_punishment=0.01)
+        cfg = eco.eval_config(n)
         agent = DQNAgent(SpinSystemEnv(n, cfg), dcfg, device=dev)
         cuts, host, secs = [], [], []
         for i in range(ECO_IDS[n]):
@@ -1158,25 +1185,24 @@ def run_eco(dev, sizes=(100, 1000)) -> None:
     profile_device(f"the same {ECO_PROFILE_STEPS} steps, eager", lambda: window.evaluate_scan(params, g, cuda_graph=False))
 
 
-def run_s2v(dev, steps: int = 6144) -> None:
-    """S2V-DQN at scripts/quality_table.py:228-284's protocol on BA_100:
-    train_scan on generate_graph(BA, 100, seed=92000), then one greedy
+def run_s2v(dev) -> None:
+    """S2V-DQN at eval/quality.py's protocol (`dqn_configs("s2v", 100)`:
+    6144 loop steps) on BA_100: train_scan on generate_graph(BA, 100,
+    seed=quality.DQN_TRAIN_SEED = 92000), then one greedy
     rollout per instance of BA_100_ID0..9."""
-    from rlsolver_tpu_torch.algos.dqn import DQNAgent, DQNConfig
+    from rlsolver_tpu_torch.algos.dqn import DQNAgent
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import generate_graph, graph_from_name
-    from rlsolver_tpu_torch.envs.spin_system import (NUM_OBSERVABLES_S2V, RewardSignal, SpinSystemConfig,
-                                                     SpinSystemEnv)
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv
+    from rlsolver_tpu_torch.eval import quality
 
     n = 100
-    cfg = SpinSystemConfig(num_envs=32, max_steps=n, reversible_spins=False, num_observables=NUM_OBSERVABLES_S2V,
-                           reward_signal=RewardSignal.DENSE, norm_rewards=False)
-    dcfg = DQNConfig(features=32, n_layers=2, buffer_capacity=2**12, eps_decay_steps=steps // 2)
+    cfg, _, dcfg, steps = quality.dqn_configs("s2v", n)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     agent = DQNAgent(SpinSystemEnv(n, cfg), dcfg, device=dev)
     t0 = time.time()
-    params, best, state = agent.train_scan(generate_graph(GraphType.BA, n, seed=92000), steps)
+    params, best, state = agent.train_scan(generate_graph(GraphType.BA, n, seed=quality.DQN_TRAIN_SEED), steps)
     torch.cuda.synchronize()
     train_s = time.time() - t0
     print(f"  S2V-DQN training: {state.step_idx} loop steps x {cfg.num_envs} envs, {state.train_steps} SGD steps in "
@@ -1194,24 +1220,25 @@ def run_s2v(dev, steps: int = 6144) -> None:
 
 
 def run_jumanji(dev, iters: int = JUMANJI_ITERS) -> None:
-    """Jumanji PPO at scripts/quality_table.py:171-227's protocol on BA_100:
-    train_spin_ppo on generate_graph(BA, 100, seed=91000), 128 envs, 200
-    steps, `iters` iterations (the protocol's 100 cut to JUMANJI_ITERS),
+    """Jumanji PPO at eval/quality.py's protocol (`jumanji_configs(100)`) on
+    BA_100: train_spin_ppo on generate_graph(BA, 100, seed=91000), 128 envs,
+    200 steps, `iters` iterations (the protocol's 100 cut to JUMANJI_ITERS),
     then make_greedy_evaluator at 64 envs on BA_100_ID0..9."""
-    from rlsolver_tpu_torch.algos.jumanji_ppo import MPNNActorCritic, SpinPPOConfig, make_greedy_evaluator, train_spin_ppo
+    from rlsolver_tpu_torch.algos.jumanji_ppo import MPNNActorCritic, make_greedy_evaluator, train_spin_ppo
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import generate_graph, graph_from_name
-    from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig, SpinSystemEnv
+    from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv
+    from rlsolver_tpu_torch.eval import quality
 
     n = 100
-    train_env = SpinSystemEnv(n, SpinSystemConfig(num_envs=128, max_steps=min(2 * n, 256), basin_reward=1.0 / n,
-                                                  stag_punishment=0.01))
-    eval_env = SpinSystemEnv(n, SpinSystemConfig(num_envs=64, basin_reward=1.0 / n, stag_punishment=0.01))
-    cfg = SpinPPOConfig(num_iters=iters, features=32, n_layers=2, num_minibatches=1)
+    train_cfg, eval_cfg, cfg = quality.jumanji_configs(n)
+    train_env, eval_env = SpinSystemEnv(n, train_cfg), SpinSystemEnv(n, eval_cfg)
+    cfg = dataclasses.replace(cfg, num_iters=iters)
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    params, hist = train_spin_ppo(train_env, generate_graph(GraphType.BA, n, seed=91000), cfg, device=dev)
+    params, hist = train_spin_ppo(train_env, generate_graph(GraphType.BA, n, seed=quality.JUMANJI_TRAIN_SEED), cfg,
+                                  device=dev)
     train_s = time.time() - t0
     print(f"  Jumanji PPO training: {cfg.num_iters} iterations of {train_env.config.num_envs} envs x "
           f"{train_env.max_steps} steps and {cfg.update_epochs} epochs in {train_s:.2f} s "
@@ -1455,13 +1482,12 @@ def run_pattern1(dev) -> None:
               f"equal bit for bit ({resumed.train_steps} SGD steps)", flush=True)
 
 
-# DIST_TABLE's baselines as scripts/quality_table.py:42-86 runs them (the
-# instance id as the seed) and its ISCO, PI-GNN and specb cell protocols
-# (:290-341); BLS at scripts/instance_wise.py:98-100's width on G22-like
+# DIST_TABLE's baselines as eval/quality.py runs them (`run_classical`, the
+# instance id as the seed) and its ISCO, PI-GNN and specb cell protocols;
+# BLS at eval/instance_wise.py's width (`bls_config`) on G22-like
 BASE_1000_IDS = 4  # SA and GA on BA_1000_ID0..3
-SPECB_CFG = dict(opt_iters=4000, lr=4.0, block_size=16, mu_halvings=10, certify_squarings=12)
 BOUND_ALGS = ("specb", "milp_bound")  # dist_table.csv's rows that are bounds, not cuts
-BLS_CHAINS, BLS_BUDGET_S = 1024, 15.0
+BLS_BUDGET_S = 15.0
 # PI-GNN's cell from this many seeds: one cell's mean spreads by about 1.3%
 # over seeds (the JAX package on a CPU: 278.4, 276.9, 277.5 for seeds 0-2;
 # dist_table.csv's two runs average 279.25), so the column's mean is taken
@@ -1520,13 +1546,11 @@ def run_baselines(dev, errs: dict) -> dict:
     import re
     from rlsolver_tpu_torch.algos.isco import ISCOConfig, cell_sampler, solve_maxcut_isco_cell
     from rlsolver_tpu_torch.algos.pignn import PIGNNConfig, solve_maxcut_pignn_cell
-    from rlsolver_tpu_torch.classical.bls import BLSConfig, solve_maxcut_bls
-    from rlsolver_tpu_torch.classical.genetic import GAConfig, genetic_maxcut
-    from rlsolver_tpu_torch.classical.greedy import greedy_maxcut
-    from rlsolver_tpu_torch.classical.random_walk import random_walk_maxcut
-    from rlsolver_tpu_torch.classical.sdp import SDPConfig, sdp_maxcut
+    from rlsolver_tpu_torch.classical.bls import solve_maxcut_bls
+    from rlsolver_tpu_torch.classical.genetic import GAConfig
     from rlsolver_tpu_torch.classical import simulated_annealing as sa
-    from rlsolver_tpu_torch.classical.spectral_bound import SpectralBoundConfig, maxcut_upper_bound_cell
+    from rlsolver_tpu_torch.classical.spectral_bound import maxcut_upper_bound_cell
+    from rlsolver_tpu_torch.eval import instance_wise, quality
     from rlsolver_tpu_torch.core.generate import build_g22_like, graph_from_name
     from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
     from rlsolver_tpu_torch.ops import cut
@@ -1579,19 +1603,18 @@ def run_baselines(dev, errs: dict) -> dict:
     ids100, ids1000 = list(range(10)), list(range(BASE_1000_IDS))
     # Greedy: all zeros, no draws; the JAX package's cuts exactly (b)
     for n in (100, 1000):
-        no_kernel("greedy", per_instance("greedy", n, list(range(10)), lambda g, i: greedy_maxcut(g, device=dev)))
+        no_kernel("greedy", per_instance("greedy", n, list(range(10)),
+                                         lambda g, i: quality.run_classical("greedy", g, i, device=dev)))
         jax_greedy = [table[n]["greedy"][i][0] for i in range(10)]
         print(f"  greedy BA_{n}: cuts {ours[('greedy', n)]}; dist_table.csv {jax_greedy}", flush=True)
         if ours[("greedy", n)] != jax_greedy:
             raise AssertionError(f"greedy BA_{n}: {ours[('greedy', n)]} != dist_table.csv's {jax_greedy}")
-    no_kernel("rw", per_instance("rw", 100, ids100, lambda g, i: random_walk_maxcut(g, seed=i, device=dev)))
-    no_kernel("sdp", per_instance("sdp", 100, ids100, lambda g, i: sdp_maxcut(g, SDPConfig(seed=i), device=dev)))
+    for alg in ("rw", "sdp"):
+        no_kernel(alg, per_instance(alg, 100, ids100, lambda g, i: quality.run_classical(alg, g, i, device=dev)))
     ga_counts = {}
     for n, ids in ((100, ids100), (1000, ids1000)):
-        no_kernel("sa", per_instance("sa", n, ids, lambda g, i: sa.anneal_maxcut(
-            g, sa.SAConfig(num_chains=256, num_steps=max(2000, 12 * g.num_nodes), seed=i), device=dev)))
-        counts = per_instance("ga", n, ids, lambda g, i: genetic_maxcut(
-            g, GAConfig(generations=40 if g.num_nodes <= 400 else 64, seed=i), device=dev))
+        no_kernel("sa", per_instance("sa", n, ids, lambda g, i: quality.run_classical("sa", g, i, device=dev)))
+        counts = per_instance("ga", n, ids, lambda g, i: quality.run_classical("ga", g, i, device=dev))
         ga_counts = {k: ga_counts.get(k, 0) + v for k, v in counts.items()}
     require_launches("ga", ga_counts, ("sweep_1flip_f32",), SWEEPS)  # (e)
     # SA's loop replays CUDA graphs of sa.GRAPH_STEPS steps: the same chains
@@ -1616,9 +1639,7 @@ def run_baselines(dev, errs: dict) -> dict:
           f"loop bit for bit; {sa_wall[True][2]:.3f} s graphed, {sa_wall[False][2]:.3f} s eager", flush=True)
     for n in (100, 1000):
         build.reset_counts()
-        cell("isco", n, lambda gs: solve_maxcut_isco_cell(gs, ISCOConfig(
-            batch_size=256 if gs[0].num_nodes <= 800 else 96, chain_length=max(600, 2 * gs[0].num_nodes), seed=0),
-            device=dev))
+        cell("isco", n, lambda gs: solve_maxcut_isco_cell(gs, quality.isco_config(gs[0].num_nodes), device=dev))
         no_kernel("isco", launches())
     build.reset_counts()
     pignn_runs = []
@@ -1643,8 +1664,9 @@ def run_baselines(dev, errs: dict) -> dict:
           f"bit; {walls[0]:.3f} s graphed (two warm-up blocks and the capture included), {walls[1]:.3f} s eager",
           flush=True)
     t0 = time.time()
-    bounds = maxcut_upper_bound_cell(graphs[100], SpectralBoundConfig(**SPECB_CFG), device=dev)
-    print(f"  specb cell BA_100 ({SPECB_CFG}): {time.time() - t0:.3f} s", flush=True)
+    specb_cfg = quality.specb_config(100)
+    bounds = maxcut_upper_bound_cell(graphs[100], specb_cfg, device=dev)
+    print(f"  specb cell BA_100 ({specb_cfg}): {time.time() - t0:.3f} s", flush=True)
     no_kernel("pignn and specb", launches())
     for alg in ("rw", "sdp", "sa", "ga", "isco", "pignn"):
         versus_jax(alg, 100, ids100)
@@ -1673,15 +1695,15 @@ def run_baselines(dev, errs: dict) -> dict:
           f"build_g22_like() (gnm_edges(2000, 19990, seed=22), held equal to networkx's by the tests)", flush=True)
     curve = []
     build.reset_counts()
+    bls_cfg = instance_wise.bls_config(g22.num_nodes)
     t0 = time.time()
-    bits, best, hist = solve_maxcut_bls(g22, BLSConfig(num_chains=BLS_CHAINS, num_rounds=100000, seed=0,
-                                                       packed_sweep=True),
+    bits, best, hist = solve_maxcut_bls(g22, bls_cfg,
                                         record=lambda i, b: curve.append((time.time() - t0, b)),
                                         time_budget=BLS_BUDGET_S, device=dev)
     bls_counts = launches()
     host_check("bls", g22, bits, best)
-    print(f"  bls G22like ({BLS_CHAINS} chains, packed warm start, {BLS_BUDGET_S} s): {len(hist)} rounds of 512 "
-          f"steps in {curve[-1][0]:.2f} s, {curve[-1][0] / (512 * len(hist)) * 1e3:.4f} ms a step; best {best}",
+    print(f"  bls G22like ({bls_cfg.num_chains} chains, packed warm start, {BLS_BUDGET_S} s): {len(hist)} rounds of "
+          f"512 steps in {curve[-1][0]:.2f} s, {curve[-1][0] / (512 * len(hist)) * 1e3:.4f} ms a step; best {best}",
           flush=True)
     import csv
     with open(os.path.join(REPO, "results_quality", "instance_wise.csv")) as f:
@@ -1710,8 +1732,8 @@ def run_baselines(dev, errs: dict) -> dict:
     for name, a, b in zip(("s", "gains", "vs"), k_out, p_out):
         require_equal(f"K10 at GA's shape ({xs.shape[0]} chains, {env.graph.name}) {name}", a, b, errs,
                       "sweep_1flip_f32")
-    warm = env22.random_xs(gen, BLS_CHAINS)
-    require_equal(f"K5 at BLS's warm-start shape ({BLS_CHAINS} chains, G22like)", env22.flip_engine.sweep(warm),
+    warm = env22.random_xs(gen, bls_cfg.num_chains)
+    require_equal(f"K5 at BLS's warm-start shape ({bls_cfg.num_chains} chains, G22like)", env22.flip_engine.sweep(warm),
                   sw._sweep_1flip_plain(warm, env22.flip_engine.tables), errs, "sweep_1flip")
     # their wrappers' times at these shapes (CUDA events; with the wrapper's
     # copies of the state, K5's with the bit codec), beside the plain versions'
@@ -1725,7 +1747,7 @@ def run_baselines(dev, errs: dict) -> dict:
     # where an SA step and an ISCO step spend their time
     g = graphs[1000][0]
     cg = cut.CutGraph.build(g, dev)
-    sa_cfg = sa.SAConfig(num_chains=256, num_steps=max(2000, 12 * g.num_nodes))
+    sa_cfg = quality.sa_config(g.num_nodes, 0)
     temps = torch.from_numpy(sa.temperatures(sa_cfg)[:SA_PROFILE_STEPS]).to(dev)
     xs = torch.rand(256, g.num_nodes, generator=gen, device=dev) < 0.5
     nodes = torch.randint(0, g.num_nodes, (SA_PROFILE_STEPS, 256), generator=gen, device=dev)
@@ -3311,6 +3333,125 @@ def run_agents(dev) -> dict:
     return no_launches("agents")
 
 
+def run_cli(dev) -> None:
+    """The `cli` phase: `python -m rlsolver_tpu_torch --alg mcpg --fast` on
+    W22-like written as a gset file and on BA_100_ID0, then the CLI's `main`
+    in this process (a `python -m` run pays its own start-up and first
+    calls, 7-13 s each) with the other algorithms; each run is re-scored by
+    the CLI, which raises on a mismatch."""
+    import io
+    from rlsolver_tpu_torch.core.generate import build_w22_like
+    from rlsolver_tpu_torch.run import main as cli_main
+
+    w22 = build_w22_like()
+    with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
+        with open(os.path.join(data_dir, "W22like.txt"), "w") as f:  # gset format, 1-indexed
+            f.write(f"{w22.num_nodes} {w22.num_edges}\n")
+            f.writelines(f"{a + 1} {b + 1} {int(x)}\n" for (a, b), x in zip(w22.edges.tolist(), w22.weights))
+        args = ["--alg", "mcpg", "--fast", "--data-dir", data_dir, "--prefixes", "W22like", "--graphs", "BA_100_ID0"]
+        proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", *args], capture_output=True, text=True,
+                              cwd=REPO, timeout=600)
+        print("  " + proc.stdout.strip().replace("\n", "\n  "), flush=True)
+        if proc.returncode != 0 or proc.stdout.count("obj=") != 2:
+            raise AssertionError(f"CLI {args} failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    runs = [(["--alg", alg] + fast, "BA_100_ID0") for alg in ("l2a", "local_search") for fast in ([], ["--fast"])]
+    runs += [(["--alg", alg], "BA_100_ID0") for alg in ("sa", "isco", "ga")] + [(["--alg", "vqe"], VQE_GRAPH)]
+    for args, graph in runs:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(args + ["--graphs", graph])
+        print("  " + out.getvalue().strip(), flush=True)
+        if rc != 0 or out.getvalue().count("obj=") != 1:
+            raise AssertionError(f"CLI {args} failed ({rc}): {out.getvalue()}")
+
+
+# The side process (`python3 chip_smoke.py --side`): the phases that hold no
+# state that a later phase reads and whose paths are not timed in the
+# kernels line run in a second process on the card, started after the build
+# and joined before the time phase, so that their loops, most of them
+# bound by the host's launches, overlap the main process's phases. Its last
+# line gives the launches of the phases whose counts the kernels line takes.
+PATTERN_I_SIDE = ("eco", "s2v", "jumanji")  # pattern I's phases here; pattern1 stays in the main process
+SIDE_PHASES = PATTERN_I_SIDE + ("problems", "beamforming", "tsp", "l2o", "rlor", "agents", "cli")
+SIDE_COUNTED = ("tsp", "l2o", "rlor", "agents")  # phases whose launches the kernels line takes, by name
+SIDE_WAIT_S = 900.0  # from the side's start to the end of its wait
+CHILDREN: list = []  # the process groups this script started and has not ended (ended at its exit)
+
+
+def side_main() -> int:
+    """`--side`: SIDE_PHASES in this process, beside the main process. The
+    last line is {"side_launches": {...}}: pattern I's launches over
+    PATTERN_I_SIDE, and those of each phase of SIDE_COUNTED."""
+    import ctypes
+    import signal
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --side: no CUDA device", file=sys.stderr)
+        return 2
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG: end with the main process
+    sys.path.insert(0, REPO)
+    from rlsolver_tpu_torch.device import resolve_device
+    # every kernel module, so that the launch counts name every kernel
+    from rlsolver_tpu_torch.ops.kernels import build, mcpg_sweep, mh_sampler, sweep_kernel, weighted_sweep  # noqa: F401
+
+    dev = resolve_device("cuda")
+    runs = dict(eco=run_eco, s2v=run_s2v, jumanji=run_jumanji, problems=run_problems, beamforming=run_beamforming,
+                tsp=run_tsp, l2o=run_l2o, rlor=run_rlor, agents=run_agents, cli=run_cli)
+    launches = {}
+    build.reset_counts()
+    for name in SIDE_PHASES:
+        t0 = time.time()
+        counts = runs[name](dev)
+        phase(name, t0)
+        if name == PATTERN_I_SIDE[-1]:
+            launches["pattern_i"] = {k.name: k.launches for k in build.KERNELS}
+        if name in SIDE_COUNTED:
+            launches[name] = counts
+    print(json.dumps({"side_launches": launches}), flush=True)
+    return 0
+
+
+def start_side() -> tuple:
+    """Starts `chip_smoke.py --side` in a session of its own, its output
+    into a file. Returns (process, output path, its directory, start time)."""
+    out_dir = tempfile.TemporaryDirectory(dir=REPO)
+    path = os.path.join(out_dir.name, "side.log")
+    with open(path, "w") as f:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side"], cwd=REPO, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+    proc.log_path = path  # its output is shown at the join, or at this script's exit if it fails first
+    CHILDREN.append(proc)
+    print(f"  the side process (pid {proc.pid}) runs {', '.join(SIDE_PHASES)} beside the phases below", flush=True)
+    return proc, path, out_dir, time.time()
+
+
+def join_side(side) -> dict:
+    """Waits for the side process (at most SIDE_WAIT_S from its start),
+    prints its output and fails unless it ended with 0 and its launches
+    line. Returns those launches."""
+    proc, path, out_dir, t_start = side
+    try:
+        t0 = time.time()
+        proc.wait(timeout=max(1.0, SIDE_WAIT_S - (t0 - t_start)))
+        waited = time.time() - t0
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        waited = None
+    with open(path) as f:
+        text = f.read()
+    out_dir.cleanup()
+    CHILDREN.remove(proc)
+    print(f"  the side process's output ({time.time() - t_start:.1f} s from its start; the main process waited "
+          f"{'-' if waited is None else f'{waited:.1f}'} s for it):", flush=True)
+    print(text.rstrip(), flush=True)
+    if waited is None:
+        raise AssertionError(f"the side process ran past {SIDE_WAIT_S} s and was stopped")
+    lines = text.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"side_launches"'):
+        raise AssertionError(f"the side process failed ({proc.returncode})")
+    return json.loads(lines[-1])["side_launches"]
+
+
 
 # The data-parallel layer (phase `parallel`): the sharded forms at world
 # size 1 over NCCL in this process, then at world size 2, two spawned ranks
@@ -3813,6 +3954,200 @@ def run_parallel(dev, errs: dict) -> dict:
     return counts
 
 
+# The quality harness (eval/): the distribution runner, its summary, the
+# committed ER ECO network through eco_distribution, and instance_wise in
+# its default process-per-run mode
+QUALITY_CELL = ("ER", 100, 2)  # dist, N, ids 0..1
+QUALITY_ALGS = "greedy,mcpg"
+QUALITY_BLS = ("G14like", 10.0)  # instance, seconds
+# the kernels of the quality runs that no other phase holds at their runs'
+# shapes: the instance-wise MCPG on these instances (K3, the sweep engine's
+# kernel, the warm start's 1-flip kernel), and ER_1000's L2A training sweep
+# and GA's K10; the plain sweeps on the first QUALITY_PLAIN_CHAINS chains.
+# The plain sweep's Python loop takes a step a node: 14.7 s for 2 sweeps of
+# G70like, so the sweeps held are cut from the preset's 8 (a sweep's chunk
+# staging and, on G14like, the state carried across sweeps are exercised)
+QUALITY_MCPG = {"G14like": 2, "G70like": 1}  # instance: sweeps held
+QUALITY_PLAIN_CHAINS = 512
+
+
+def start_instance_wise(tmp: str) -> tuple:
+    """Starts `scripts/torch_instance_wise.py` in its default mode (it runs
+    a child process per (instance, alg)) on QUALITY_BLS's instance with BLS,
+    its curve into `tmp`. Returns (process, curve CSV, start time)."""
+    name, budget = QUALITY_BLS
+    out = os.path.join(tmp, "iw.csv")
+    proc = subprocess.Popen([sys.executable, os.path.join(REPO, "scripts", "torch_instance_wise.py"), "--insts", name,
+                             "--algs", "bls", "--budget", str(budget), "--out", out], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    return proc, out, time.time()
+
+
+def stop_group(proc) -> None:
+    """Kills a process started with its own session, and its children."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def run_quality(dev, iw_run, errs: dict) -> dict:
+    """`scripts/torch_quality_table.py` on ER_100 ids 0-1 (greedy, mcpg)
+    twice into a temporary CSV (the second run appends no row), its Markdown
+    through `quality_summary.render`, the committed ER ECO-DQN network
+    (results_quality/eco_params_ER.pkl) through `eco_distribution` on the
+    same instances; then the end of `iw_run`, the instance-wise run that
+    `start_instance_wise` started (G14like, BLS for QUALITY_BLS seconds).
+    Greedy equals dist_table.csv, MCPG's and ECO's means are at least the
+    JAX runs' less 1%, every cut equals its host re-score (checked by the
+    runners), BLS launches the engine's 1-flip kernel (K5) and ends with no
+    failure. Returns the launches: this process's and the child's, which it
+    prints. Then `quality_kernel_checks`."""
+    import ast
+    from rlsolver_tpu_torch.eval import eco_distribution, quality, quality_summary
+    # every kernel module, so that the launch counts name every kernel
+    from rlsolver_tpu_torch.ops.kernels import build, mcpg_sweep, mh_sampler, sweep_kernel, weighted_sweep  # noqa: F401
+
+    dist, n, ids = QUALITY_CELL
+    iw_name = QUALITY_BLS[0]
+    child, iw_csv, t_iw = iw_run
+    table = dist_rows(n, dist)
+    build.reset_counts()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        q_csv, eco_csv = (os.path.join(tmp, f) for f in ("q.csv", "eco.csv"))
+        try:
+            argv = ["--sizes", str(n), "--dists", dist, "--algs", QUALITY_ALGS, "--ids", str(ids), "--out", q_csv]
+            t0 = time.time()
+            quality.main(argv)
+            first_s = time.time() - t0
+            with open(q_csv) as f:
+                first = f.read()
+            quality.main(argv)
+            with open(q_csv) as f:
+                if f.read() != first:
+                    raise AssertionError("quality: the resumed run appended rows to a complete CSV")
+            rows = [r.split(",") for r in first.splitlines()[1:]]
+            print(f"  torch_quality_table on {dist}_{n} ids 0..{ids - 1} ({QUALITY_ALGS}): {first_s:.2f} s, "
+                  f"{len(rows)} rows; the second run appended none", flush=True)
+            for alg in QUALITY_ALGS.split(","):
+                cuts = [float(r[4]) for r in rows if r[3] == alg]
+                jax_first = [table[alg][i][0] for i in range(ids)]
+                print(f"  {alg} {dist}_{n}: cuts {cuts}; dist_table.csv's first run {jax_first}", flush=True)
+                if alg == "greedy" and cuts != jax_first:
+                    raise AssertionError(f"quality greedy {dist}_{n}: {cuts} != dist_table.csv's {jax_first}")
+                check_mean(f"quality {alg} {dist}_{n}", cuts, [table[alg][i] for i in range(ids)])
+            text = quality_summary.render(q_csv, smi_line())
+            row = next(ln for ln in text.splitlines() if ln.startswith(f"| {n} |"))
+            print(f"  render: {len(text.splitlines())} lines; the {dist} row: {row}", flush=True)
+            if f"## {dist}" not in text or "Device: " not in text:
+                raise AssertionError("quality_summary.render: the distribution's section or the device line is missing")
+
+            t0 = time.time()
+            eco_distribution.main(["--dists", dist, "--sizes", str(n), "--ids", str(ids), "--out", eco_csv,
+                                   "--params", os.path.join(REPO, "results_quality", "eco_params_{dist}.pkl")])
+            with open(eco_csv) as f:
+                eco_cuts = [float(r["obj"]) for r in csv_rows(f)]
+            print(f"  eco_distribution, the committed {dist} network: {time.time() - t0:.2f} s", flush=True)
+            # the committed networks' rows are dist_table.csv's last eco run
+            check_mean(f"quality eco {dist}_{n}", eco_cuts, [[c] for c in jax_alg_runs("eco", n, dist)[-1][:ids]])
+            in_process = {k.name: k.launches for k in build.KERNELS}
+            out, _ = child.communicate(timeout=300)
+        finally:
+            stop_group(child)
+        iw_s = time.time() - t_iw
+        print("  instance_wise (started before the parallel phase): " + out.strip().replace("\n", "\n    "), flush=True)
+        best = [ln for ln in out.splitlines() if "-> best" in ln]
+        if child.returncode != 0 or "!!" in out or "subprocess exit 0" not in out or len(best) != 1:
+            raise AssertionError(f"instance_wise {iw_name} bls failed ({child.returncode})")
+        child_counts = ast.literal_eval(best[0].split("kernel launches ")[1])
+        with open(iw_csv) as f:
+            curve = [(float(r["seconds"]), float(r["obj"])) for r in csv_rows(f)]
+        print(f"  instance_wise {iw_name} bls: {len(curve)} curve rows, {curve[0]} .. {curve[-1]}; "
+              f"{iw_s:.2f} s from its start to the end of its wait, its processes' start-up included", flush=True)
+    counts = {k: v + child_counts.get(k, 0) for k, v in in_process.items()}
+    require_launches("quality (instance_wise's child included)", counts, ("sweep_1flip",),
+                     tuple(k for k in SWEEPS + ("sweep_1flip_f32",) if k != "sweep_1flip"))
+    quality_kernel_checks(dev, errs)
+    return counts
+
+
+def quality_kernel_checks(dev, errs: dict) -> None:
+    """Holds each kernel the quality runs launch, at those runs' shapes and
+    where no other phase does, against its plain version (into `errs`):
+    instance-wise MCPG's K3 (every chain), its sweep engine's kernel and its
+    warm start's 1-flip kernel on QUALITY_MCPG's instances, the 1-flip
+    kernel of ER_1000's L2A training (the rule's pick at ER's density) at
+    its sims, and K10 at GA's population on ER_1000_ID0."""
+    from rlsolver_tpu_torch.algos import l2a_distribution as l2d
+    from rlsolver_tpu_torch.classical.genetic import GAConfig
+    from rlsolver_tpu_torch.core.generate import graph_from_name
+    from rlsolver_tpu_torch.envs.maxcut import MaxcutEnv
+    from rlsolver_tpu_torch.eval import instance_wise, quality
+    from rlsolver_tpu_torch.ops import cut
+    from rlsolver_tpu_torch.ops.kernels import codec, engine, mcpg_sweep as sw, mh_sampler as mh
+    from rlsolver_tpu_torch.ops.kernels import sweep_kernel as sk, weighted_sweep as wsw
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    t0 = time.time()
+
+    def lap(what):
+        nonlocal t0
+        torch.cuda.synchronize()
+        print(f"    ({what}: {time.time() - t0:.2f} s)", flush=True)
+        t0 = time.time()
+
+    def flip_check(label, flip, bits):
+        key = FLIP_KERNELS[flip.levels] if flip.weighted else "sweep_1flip"
+        plain = (wsw._sweep_1flip_plain if flip.weighted else sw._sweep_1flip_plain)(bits, flip.tables)
+        require_equal(f"{key} {label} ({bits.shape[0]} chains)", flip.sweep(bits), plain, errs, key)
+
+    for name, sweeps in QUALITY_MCPG.items():
+        g, cfg = instance_wise.build_instance(name), instance_wise.mcpg_config(name)
+        n, chains = g.num_nodes, cfg.total_mcmc_num * cfg.repeat_times
+        lap(f"{name}'s graph")
+        rounds = max(cfg.num_ls, 2 * (cfg.change_times or max(1, n // 10)))
+        probs = torch.rand(n, generator=gen, device=dev) * 0.6 + 0.2
+        rows = torch.rand(chains, n, generator=gen, device=dev) < 0.5
+        k3 = mh.fused_kernel(chains, codec.num_words(n), dev)
+        out = mh.mh_sample_fused(1818, probs, rows, rounds)
+        plain = codec.unpack_bits(mh.mh_fused_plain(1818, mh.fused_thresholds(probs), codec.pack_bits(rows), n,
+                                                    rounds), n)
+        require_equal(f"K3 {k3.name} at {name}'s instance-wise MCPG ({chains} chains, {rounds} rounds)", out, plain,
+                      errs, k3.name)
+        lap("K3 and its plain version")
+        eng = engine.FusedSweepEngine.build(g, dev)
+        lap("the sweep engine's tables")
+        key = ("mcpg_sweep_weighted_chunked" if eng.node_chunk else "mcpg_sweep_weighted") if eng.weighted \
+            else "mcpg_sweep"
+        sub = out[:QUALITY_PLAIN_CHAINS].contiguous()
+        plain = codec.unpack_bits((wsw._wsweep_plain if eng.weighted else sw._sweep_plain)(
+            eng.tables, codec.pack_bits(sub), n, sweeps, 0.25, None, 1819), n)
+        require_equal(f"{key} at {name}'s instance-wise MCPG (first {QUALITY_PLAIN_CHAINS} of {chains} chains, "
+                      f"{sweeps} sweeps)", eng.sweep(1819, out, sweeps)[:QUALITY_PLAIN_CHAINS], plain, errs, key)
+        lap("the sweep and its plain version")
+        flip_check(f"at {name}'s MCPG warm start", engine.FlipSweepEngine.build(g, dev),
+                   rows[:cfg.total_mcmc_num].contiguous())
+        lap("the 1-flip engine, its sweep and plain version")
+        del rows, out
+    cfg = quality.l2a_config("ER", 1000)
+    graph, adj = l2d._sample_adj(cfg, 50_000, dev)
+    flip_check(f"at ER_1000's L2A training ({graph.name})", l2d._adj_sweep(adj, graph).engine,
+               torch.rand(cfg.num_sims, cfg.num_nodes, generator=gen, device=dev) < 0.5)
+    lap("ER_1000's graph, 1-flip tables, sweep and plain version")
+    env = MaxcutEnv(graph_from_name("ER_1000_ID0"), dev)
+    xs = env.random_xs(gen, GAConfig().population)
+    s, gains, vs = cut.signs_from_bits(xs), env.gains(xs), env.obj(xs)
+    for label, a, b in zip(("s", "gains", "vs"), sk.sweep_1flip_f32(env.cg.adj, s, gains, vs, env.f32_lists),
+                           sk.sweep_1flip_f32_plain(env.cg.adj, s, gains, vs)):
+        require_equal(f"K10 at GA's shape on ER_1000_ID0 ({xs.shape[0]} chains) {label}", a, b, errs, "sweep_1flip_f32")
+    lap("K10 and its plain version")
+
+
+def csv_rows(f):
+    import csv
+    return list(csv.DictReader(f))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3844,6 +4179,7 @@ def main() -> int:
         spills = sorted({ln.strip() for ln in log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln})
         print(f"  {src}: {len(regs)} kernels, at most {max(regs)} registers, spills: {spills or 'none'}")
     phase("build", t0)
+    side = start_side()
 
     # 2. kernel checks at the main path's shapes ---------------------------
     t0 = time.time()
@@ -4358,9 +4694,6 @@ def main() -> int:
     t0 = time.time()
     runner_counts = run_runners(dev, g, main_seconds, errs, k3_at)
     phase("runners", t0)
-    t0 = time.time()
-    run_problems(dev)
-    phase("problems", t0)
 
     # distribution-wise L2A at BA_1000's widths ----------------------------------
     t0 = time.time()
@@ -4381,64 +4714,34 @@ def main() -> int:
     tnco_counts, k3_tnco = run_tnco(dev, errs)
     phase("tnco", t0)
 
-    # Pattern I: ECO-DQN, S2V-DQN, Jumanji PPO, bench.py's pattern1 datum -------
+    # Pattern I: bench.py's pattern1 datum (ECO-DQN, S2V-DQN and Jumanji PPO run in the side process)
     build.reset_counts()
-    for name, run in (("eco", run_eco), ("s2v", run_s2v), ("jumanji", run_jumanji), ("pattern1", run_pattern1)):
-        t0 = time.time()
-        run(dev)
-        phase(name, t0)
-    pattern_i_counts = {k.name: k.launches for k in build.KERNELS}
-    print(f"  launches in eco, s2v, jumanji and pattern1: {pattern_i_counts} (no kernel of the port lies on "
-          f"the Pattern I path: the MPNN's GEMMs and the env's elementwise ops are torch)", flush=True)
+    t0 = time.time()
+    run_pattern1(dev)
+    phase("pattern1", t0)
+    pattern1_counts = {k.name: k.launches for k in build.KERNELS}
     t0 = time.time()
     run_ppo(dev)
     phase("ppo", t0)
-    t0 = time.time()
-    run_beamforming(dev)
-    phase("beamforming", t0)
-    t0 = time.time()
-    tsp_counts = run_tsp(dev)
-    phase("tsp", t0)
-    t0 = time.time()
-    l2o_counts = run_l2o(dev)
-    phase("l2o", t0)
-    t0 = time.time()
-    rlor_counts = run_rlor(dev)
-    phase("rlor", t0)
-    t0 = time.time()
-    agents_counts = run_agents(dev)
-    phase("agents", t0)
-    t0 = time.time()
-    parallel_counts = run_parallel(dev, errs)
-    phase("parallel", t0)
 
-    # 9. CLI ------------------------------------------------------------------
-    t0 = time.time()
-    with tempfile.TemporaryDirectory(dir=REPO) as data_dir:
-        with open(os.path.join(data_dir, "W22like.txt"), "w") as f:  # gset format, 1-indexed
-            f.write(f"{w22.num_nodes} {w22.num_edges}\n")
-            f.writelines(f"{a + 1} {b + 1} {int(x)}\n" for (a, b), x in zip(w22.edges.tolist(), w22.weights))
-        args = ["--alg", "mcpg", "--fast", "--data-dir", data_dir, "--prefixes", "W22like", "--graphs", "BA_100_ID0"]
-        proc = subprocess.run([sys.executable, "-m", "rlsolver_tpu_torch", *args], capture_output=True, text=True,
-                              cwd=REPO, timeout=600)
-        print("  " + proc.stdout.strip().replace("\n", "\n  "), flush=True)
-        if proc.returncode != 0 or proc.stdout.count("obj=") != 2:
-            raise AssertionError(f"CLI {args} failed ({proc.returncode}): {proc.stderr[-2000:]}")
-    # the other entries in this process (a `python -m` run pays its own start-up
-    # and first calls, 7-13 s each)
-    import contextlib
-    import io
-    from rlsolver_tpu_torch.run import main as cli_main
-    runs = [(["--alg", alg] + fast, "BA_100_ID0") for alg in ("l2a", "local_search") for fast in ([], ["--fast"])]
-    runs += [(["--alg", alg], "BA_100_ID0") for alg in ("sa", "isco", "ga")] + [(["--alg", "vqe"], VQE_GRAPH)]
-    for args, graph in runs:
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = cli_main(args + ["--graphs", graph])
-        print("  " + out.getvalue().strip(), flush=True)
-        if rc != 0 or out.getvalue().count("obj=") != 1:
-            raise AssertionError(f"CLI {args} failed ({rc}): {out.getvalue()}")
-    phase("cli", t0)
+    # 9. the parallel phase, beside it the quality step's instance-wise run, then the quality step
+    iw_dir = tempfile.TemporaryDirectory(dir=REPO)
+    iw_run = start_instance_wise(iw_dir.name)
+    try:
+        t0 = time.time()
+        parallel_counts = run_parallel(dev, errs)
+        phase("parallel", t0)
+        t0 = time.time()
+        quality_counts = run_quality(dev, iw_run, errs)
+    finally:
+        stop_group(iw_run[0])
+        iw_dir.cleanup()
+    phase("quality", t0)
+    side_launches = join_side(side)
+    pattern_i_counts = {k: v + side_launches["pattern_i"][k] for k, v in pattern1_counts.items()}
+    print(f"  launches in eco, s2v, jumanji (the side process) and pattern1: {pattern_i_counts} (no kernel of the "
+          f"port lies on the Pattern I path: the MPNN's GEMMs and the env's elementwise ops are torch)", flush=True)
+    tsp_counts, l2o_counts, rlor_counts, agents_counts = (side_launches[k] for k in SIDE_COUNTED)
 
     # 10. timings at each path's shapes ---------------------------------------
     t0 = time.time()
@@ -4717,6 +5020,7 @@ def main() -> int:
         k["tsp_launches"], k["l2o_launches"] = tsp_counts[k["name"]], l2o_counts[k["name"]]
         k["rlor_launches"], k["agents_launches"] = rlor_counts[k["name"]], agents_counts[k["name"]]
         k["parallel_launches"] = parallel_counts[k["name"]]
+        k["quality_launches"] = quality_counts[k["name"]]
         if k["name"] == "sweep_1flip_weighted":
             k["beside_k8b"] = flip_pairs
     phase("time", t0)
@@ -4729,4 +5033,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:] == ["--side"]:
+        sys.exit(side_main())
+    import signal
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))  # so that the side process is ended with this one
+    try:
+        sys.exit(main())
+    finally:
+        for child in list(CHILDREN):
+            stop_group(child)
+            if os.path.exists(getattr(child, "log_path", "")):
+                with open(child.log_path) as f:
+                    print(f"the side process's output, to its end:\n{f.read()[-20000:]}", file=sys.stderr)

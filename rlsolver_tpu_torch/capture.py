@@ -19,10 +19,17 @@ stays on the host.
 
 `Graphs` keeps one `CapturedCall` per loop name and input shapes, for a loop
 called again with other shapes (a solve's warm start and its rounds).
+
+A CUDA graph destroyed while another is being captured invalidates that
+capture ("operation not permitted when stream is capturing"), and an
+earlier solver's graphs often die in a reference cycle, freed whenever the
+cyclic garbage collector runs. So the collector is held off during a
+capture.
 """
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -59,8 +66,14 @@ class CapturedCall:
             for dst, src in zip(self.restore, saved):
                 dst.copy_(src)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
-            self.outputs = self.fn(*self.inputs)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=side):
+                self.outputs = self.fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
 
 
 class Graphs:

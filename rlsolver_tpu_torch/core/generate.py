@@ -10,6 +10,8 @@ generators it uses, draw for draw on the same `random.Random(seed)` stream:
   PL: powerlaw_cluster_graph(n, m=4, p=0.05) (Holme-Kim triangles)
   G(n, m): gnm_random_graph                  (two `choice` calls per try)
 
+and networkx's deterministic periodic grid (`grid_2d_periodic_edges`).
+
 Same seeds give the same edge sets as networkx (tested). The name
 "BA_100_ID7" means: seed 7, BA, 100 nodes. All weights are 1.
 """
@@ -127,6 +129,27 @@ def gnm_edges(n: int, m: int, seed: int) -> List[tuple]:
             continue
         g.add_edge(u, v)
         count += 1
+    return g.edges()
+
+
+def grid_2d_periodic_edges(rows: int, cols: int) -> List[tuple]:
+    """Edges of networkx's `grid_2d_graph(rows, cols, periodic=True)`, its
+    node (i, j) numbered i * cols + j (the graph's row-major node order),
+    in the order networkx's `edges` yields them: vertical, horizontal,
+    then the wrap-around edges of dimensions longer than 2."""
+    g = _AdjDict(range(rows * cols))
+    for i in range(1, rows):
+        for j in range(cols):
+            g.add_edge(i * cols + j, (i - 1) * cols + j)
+    for i in range(rows):
+        for j in range(1, cols):
+            g.add_edge(i * cols + j, i * cols + j - 1)
+    if rows > 2:
+        for j in range(cols):
+            g.add_edge(j, (rows - 1) * cols + j)
+    if cols > 2:
+        for i in range(rows):
+            g.add_edge(i * cols, i * cols + cols - 1)
     return g.edges()
 
 

@@ -219,7 +219,7 @@ def jax_sdp_v(jg, cfg, v0):
     return np.asarray(jax.jit(lambda v: jax.lax.scan(body, v, None, length=cfg.num_iters)[0])(v0))
 
 
-@pytest.mark.parametrize("name", ["BA_100_ID6", "weighted"])
+@pytest.mark.parametrize("name", ["BA_100_ID6", "weighted", "BA_1000_ID0"])
 def test_sdp_matches_jax(name):
     jg, tg = weighted_pair() if name == "weighted" else pair(name)
     cfg = jsdp.SDPConfig(seed=4)

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of `rlsolver_tpu_torch`
 loads no JAX, no pandas and no networkx (the card's machine has neither)
 and nothing of `rlsolver_tpu`, and no source of the port (nor
-`chip_smoke.py`) names them."""
+`chip_smoke.py`, nor the port's command lines `scripts/torch_*.py`) names
+them."""
 
 import os
 import re
@@ -32,6 +33,8 @@ def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    scripts = os.path.join(REPO, "scripts")  # the port's command lines
+    out += sorted(os.path.join(scripts, f) for f in os.listdir(scripts) if f.startswith("torch_") and f.endswith(".py"))
     return [p for p in out if os.path.exists(p)]
 
 

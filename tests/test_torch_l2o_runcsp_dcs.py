@@ -199,3 +199,30 @@ def test_entry_points_need_a_card_unless_cpu(name):
     assert ENTRY_POINTS[name]("cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name](None)
+
+
+def test_runcsp_trained_boosted_predictions_match():
+    """A trained maxcut network's boosted predictions (RUN-CSP's cell:
+    trained on BA_100 instances, 8 starts on each; cut here to ID0..1 and 8
+    of 50 epochs) with JAX's initial states injected (`boosted_predict`'s
+    keys 100 + i): every start's assignment and conflict count equal JAX's,
+    so the boosted pick does too (ROADMAP Queue 3's RUN-CSP gap: inference)."""
+    jl, tl = jcsp.ConstraintLanguage.maxcut(), tcsp.ConstraintLanguage.maxcut()
+    names = [f"BA_100_ID{i}" for i in range(2)]
+    jinsts = [jcsp.CSPInstance.from_graph(j_graph_from_name(nm), jl, "NEQ") for nm in names]
+    tinsts = [tcsp.CSPInstance.from_graph(graph_from_name(nm), tl, "NEQ") for nm in names]
+    cfg = dict(epochs=8, seed=0)
+    js = jcsp.RunCspSolver(jl, jcsp.RunCspConfig(**cfg))
+    ts = tcsp.RunCspSolver(tl, tcsp.RunCspConfig(**cfg), device="cpu")
+    jparams, _ = js.train(jinsts)
+    tparams = convert.runcsp_state_dict(to_np(jparams))
+    for ji, ti in zip(jinsts, tinsts):
+        jconfs, tconfs = [], []
+        for i in range(8):
+            key = jax.random.PRNGKey(100 + i)
+            h0 = np.array(jax.random.normal(key, (ji.num_vars, js.cfg.state_size)) * 0.1)
+            a, ja = ts.predict(tparams, ti, h0=torch.from_numpy(h0)), js.predict(jparams, ji, key)
+            np.testing.assert_array_equal(a, ja)
+            tconfs.append(ti.count_conflicts(a))
+            jconfs.append(ji.count_conflicts(ja))
+        assert tconfs == jconfs
