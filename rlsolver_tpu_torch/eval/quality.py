@@ -150,24 +150,28 @@ def mcpg_config(**over):
     return MCPGConfig(**{**MCPG_PROTOCOL, **over})
 
 
-def jumanji_configs(n: int):
+def jumanji_configs(n: int, seed: int = 0, iters: Optional[int] = None):
     """(train env config, eval env config, SpinPPOConfig): truncated-rollout
-    training (a full 2N-step buffer is [2N, B, N, 7]), full 2N-step eval."""
+    training (a full 2N-step buffer is [2N, B, N, 7]), full 2N-step eval;
+    `iters` cuts the training iterations (default: the protocol's)."""
     from rlsolver_tpu_torch.algos.jumanji_ppo import SpinPPOConfig
     from rlsolver_tpu_torch.envs.spin_system import SpinSystemConfig
 
     train = SpinSystemConfig(num_envs=128 if n <= 500 else 64, max_steps=min(2 * n, 256), basin_reward=1.0 / n,
                              stag_punishment=0.01)
     evaluate = SpinSystemConfig(num_envs=64, basin_reward=1.0 / n, stag_punishment=0.01)
-    ppo = SpinPPOConfig(num_iters=int(os.environ.get("JUMANJI_ITERS", 100 if n <= 500 else 80)), features=32,
-                        n_layers=2, num_minibatches=1 if n <= 300 else (8 if n <= 500 else 16))
+    if iters is None:
+        iters = int(os.environ.get("JUMANJI_ITERS", 100 if n <= 500 else 80))
+    ppo = SpinPPOConfig(num_iters=iters, features=32, n_layers=2,
+                        num_minibatches=1 if n <= 300 else (8 if n <= 500 else 16), seed=seed)
     return train, evaluate, ppo
 
 
-def dqn_configs(alg: str, n: int):
+def dqn_configs(alg: str, n: int, seed: int = 0, steps: Optional[int] = None):
     """(train env config, eval env config, DQNConfig, loop steps) of the
     per-cell ECO-DQN ("eco": truncated training episodes, full 2N-step eval)
-    or S2V-DQN ("s2v": irreversible one-shot construction)."""
+    or S2V-DQN ("s2v": irreversible one-shot construction); `steps` cuts the
+    loop steps (and epsilon's decay with them)."""
     from rlsolver_tpu_torch.algos.dqn import DQNConfig
     from rlsolver_tpu_torch.envs.spin_system import NUM_OBSERVABLES_S2V, RewardSignal, SpinSystemConfig
 
@@ -175,13 +179,14 @@ def dqn_configs(alg: str, n: int):
         train = SpinSystemConfig(num_envs=int(os.environ.get("ECO_ENVS", 64)), max_steps=min(2 * n, 512),
                                  basin_reward=1.0 / n, stag_punishment=0.01)
         evaluate = SpinSystemConfig(num_envs=32, basin_reward=1.0 / n, stag_punishment=0.01)
-        steps = int(os.environ.get("ECO_STEPS", 24576 if n <= 500 else 12288))
+        protocol = int(os.environ.get("ECO_STEPS", 24576 if n <= 500 else 12288))
     else:
         train = evaluate = SpinSystemConfig(num_envs=32, max_steps=n, reversible_spins=False,
                                             num_observables=NUM_OBSERVABLES_S2V, reward_signal=RewardSignal.DENSE,
                                             norm_rewards=False)
-        steps = 6144 if n <= 500 else 3072
-    dcfg = DQNConfig(features=32, n_layers=2, buffer_capacity=2**12, eps_decay_steps=steps // 2)
+        protocol = 6144 if n <= 500 else 3072
+    steps = protocol if steps is None else steps
+    dcfg = DQNConfig(features=32, n_layers=2, buffer_capacity=2**12, eps_decay_steps=steps // 2, seed=seed)
     return train, evaluate, dcfg, steps
 
 
@@ -257,13 +262,13 @@ def cell_mcpg(graphs, device, **over):
     return [rescored("mcpg", g, x[k], bv[k]) for k, g in enumerate(graphs)], [dt] * len(graphs)
 
 
-def cell_jumanji(dist: str, n: int, graphs, device):
+def cell_jumanji(dist: str, n: int, graphs, device, seed: int = 0, iters: Optional[int] = None):
     from rlsolver_tpu_torch.algos.jumanji_ppo import MPNNActorCritic, make_greedy_evaluator, train_spin_ppo
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import generate_graph
     from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv
 
-    train_cfg, eval_cfg, ppo = jumanji_configs(n)
+    train_cfg, eval_cfg, ppo = jumanji_configs(n, seed, iters)
     train_g = generate_graph(GraphType(dist), n, seed=JUMANJI_TRAIN_SEED)
     train_env, eval_env = SpinSystemEnv(n, train_cfg), SpinSystemEnv(n, eval_cfg)
     t0 = time.time()
@@ -278,13 +283,13 @@ def cell_jumanji(dist: str, n: int, graphs, device):
     return cuts, [dt] * len(graphs)
 
 
-def cell_dqn(alg: str, dist: str, n: int, graphs, device):
+def cell_dqn(alg: str, dist: str, n: int, graphs, device, seed: int = 0, steps: Optional[int] = None):
     from rlsolver_tpu_torch.algos.dqn import DQNAgent
     from rlsolver_tpu_torch.config import GraphType
     from rlsolver_tpu_torch.core.generate import generate_graph
     from rlsolver_tpu_torch.envs.spin_system import SpinSystemEnv
 
-    train_cfg, eval_cfg, dcfg, steps = dqn_configs(alg, n)
+    train_cfg, eval_cfg, dcfg, steps = dqn_configs(alg, n, seed, steps)
     train_g = generate_graph(GraphType(dist), n, seed=DQN_TRAIN_SEED)
     agent = DQNAgent(SpinSystemEnv(n, train_cfg), dcfg, device=device)
     t0 = time.time()
