@@ -1,0 +1,5 @@
+"""idle_pct.batch: the device's idle share of the traced stretch of
+a batched-solve cell's window, busy the union of the device's activity intervals
+(benchmark/trace.py)."""
+
+from benchmark.trace import idle_pct as read  # noqa: F401
